@@ -1,0 +1,90 @@
+"""Bit-exact threefry2x32 random streams of ``jax.random``, in plain torch.
+
+The seeded sampler (``models.qwen.model._sample_token_seeded``) makes row
+i's Gumbel noise a pure function of ``(seeds[i], frame)`` through
+``jax.random`` keys. Reproducing those bits lets the port draw the same
+tokens as the JAX package for the same seeds. Covered:
+
+* ``PRNGKey(seed)``: the raw threefry key ``[seed >> 32, seed & 0xFFFFFFFF]``;
+* ``fold_in(key, data)``: ``threefry2x32(key, [0, data])``;
+* ``random_bits(key, shape)`` as generated under
+  ``jax_threefry_partitionable=True`` (the default of jax 0.9): element n
+  is ``x0 ^ x1`` of ``threefry2x32(key, [n >> 32, n & 0xFFFFFFFF])``;
+* ``uniform(key, shape, minval, maxval)`` for float32 and ``gumbel(key,
+  shape)`` (the default "low" mode: ``-log(-log(uniform(tiny, 1)))``).
+
+The words are held in int64 tensors masked to 32 bits (torch's uint32 has
+too few operators), so everything runs on any device as ordinary integer
+ops. Keys are int64 tensors ``(..., 2)`` and every function broadcasts over
+their leading axes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block hash (20 rounds) on broadcastable uint32 words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` as an int64 tensor ``(2,)``."""
+    seed = int(seed)
+    key = torch.empty(2, dtype=torch.int64, device=device)
+    key[0] = (seed >> 32) & MASK32  # fills, not a host->device copy
+    key[1] = seed & MASK32
+    return key
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` broadcast over ``key (..., 2)`` and ``data (...)``."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK32
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit words ``(..., *shape)`` (values in int64), partitionable layout."""
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    counts = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    expand = (...,) + (None,) * len(shape)
+    k0, k1 = key[..., 0][expand], key[..., 1][expand]
+    y0, y1 = threefry2x32(k0, k1, counts >> 32, counts & MASK32)
+    return y0 ^ y1
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` for float32, bit for bit."""
+    bits = random_bits(key, shape)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp_min(floats * span + float(lo), float(lo))
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel`` (float32, "low" mode)."""
+    u = uniform(key, shape, minval=_TINY_F32, maxval=1.0)
+    return -torch.log(-torch.log(u))
