@@ -1,20 +1,24 @@
 """Where the time of the port's main path goes on one NVIDIA GPU.
 
-Run from the repository root with no arguments:
+Run from the repository root:
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--quantization int8|int4] [--w8a8-prefill] [--stage decode|prefill]
 
-Builds Qwen3-TTS 1.7B (weight-only int8, batch 5, random weights) as
-``chip_smoke.py`` does and runs its 256-frame ``synthesize()`` in decode
-chunks of 8 steps: once to warm up, then again with the LAST chunk (the
-full 384-slot cache) under ``torch.profiler``. Prints one JSON line: the
-device time by kernel name (top 25), the device busy time, the wall time
-of the chunk and the device's idle share, and the kernel launches per
-decode step. Needs a CUDA device.
+Builds Qwen3-TTS 1.7B (weight-only int8 by default, or int4; batch 5,
+random weights) as ``chip_smoke.py`` does and runs its ``synthesize()`` in
+decode chunks of 8 steps: once to warm up, then again with one stage under
+``torch.profiler``. ``--stage decode`` (the default) profiles the LAST
+decode chunk of 256 frames (the full 384-slot cache); ``--stage prefill``
+profiles the prefill of 128 slots (one 8-step chunk follows it).
+``--w8a8-prefill`` sets ``RHO_TTS_TPU_W8A8_PREFILL=1`` (int8 only). Prints
+one JSON line: the device time by kernel name (top 25), the device busy
+time, the wall time of the stage and the device's idle share, and the
+kernel launches (per decode step for the decode stage). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -28,45 +32,57 @@ STEPS = 8  # decode steps per chunk while profiling
 FRAMES = 256  # as chip_smoke.py: the profiled last chunk sees the full 384-slot cache
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="device time by kernel of one stage")
+    parser.add_argument("--quantization", choices=["int8", "int4"], default="int8")
+    parser.add_argument("--w8a8-prefill", action="store_true")
+    parser.add_argument("--stage", choices=["decode", "prefill"], default="decode")
+    args = parser.parse_args(argv)
+    if args.w8a8_prefill and args.quantization != "int8":
+        parser.error("--w8a8-prefill needs --quantization int8")
     if not torch.cuda.is_available():
         print("chip_profile: a CUDA device is required", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     os.environ["RHO_TTS_TPU_DECODE_CHUNK"] = str(STEPS)
+    if args.w8a8_prefill:
+        os.environ["RHO_TTS_TPU_W8A8_PREFILL"] = "1"
     from rho_tts_tpu_torch.models.qwen import model as qmodel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi_line()
-    model = qmodel.QwenTTSModel(qmodel.PRESETS["1.7B"], seed=0, quantization="int8", device="cuda")
-    kw = dict(min_frames=FRAMES, max_frames=FRAMES, top_k=50,
+    model = qmodel.QwenTTSModel(qmodel.PRESETS["1.7B"], seed=0, quantization=args.quantization,
+                                device="cuda")
+    frames = FRAMES if args.stage == "decode" else STEPS
+    kw = dict(min_frames=frames, max_frames=frames, top_k=50,
               seeds=list(range(len(chip_smoke.TEXTS))))
     model.synthesize(chip_smoke.TEXTS, **kw)  # warm-up
     torch.cuda.synchronize()
 
-    # Profile the last decode chunk alone: wrap the stage function that
-    # synthesize() calls, with the device idle before and after.
+    # Profile one call of the stage function that synthesize() calls, with
+    # the device idle before and after: the prefill, or the last decode chunk.
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    decode_chunk = qmodel._decode_chunk
+    attr = "_decode_chunk" if args.stage == "decode" else "_prefill"
+    stage_fn = getattr(qmodel, attr)
     runs = []
 
-    def profiled(*args, **kwargs):
-        if args[5] + STEPS < args[2].shape[2]:  # slot0, cache_k
-            return decode_chunk(*args, **kwargs)  # not the last chunk
+    def profiled(*fargs, **kwargs):
+        if args.stage == "decode" and fargs[5] + STEPS < fargs[2].shape[2]:  # slot0, cache_k
+            return stage_fn(*fargs, **kwargs)  # not the last chunk
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            out = decode_chunk(*args, **kwargs)
+            out = stage_fn(*fargs, **kwargs)
             torch.cuda.synchronize()
             runs.append((prof, (time.perf_counter() - t0) * 1e6))
         return out
 
-    qmodel._decode_chunk = profiled
+    setattr(qmodel, attr, profiled)
     try:
         model.synthesize(chip_smoke.TEXTS, **kw)
     finally:
-        qmodel._decode_chunk = decode_chunk
+        setattr(qmodel, attr, stage_fn)
     (prof, wall_us), = runs
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -89,17 +105,19 @@ def main() -> int:
         d[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
     total = sum(v[0] for v in by_name.values())
-    print(json.dumps({
-        "profile": {
-            "what": f"1.7B int8 batch 5, prompt 128: the last decode chunk ({STEPS} steps) "
-                    f"of {FRAMES} frames",
-            "wall_us": wall_us, "device_busy_us": busy, "device_idle_share": 1 - busy / wall_us,
-            "kernel_us_total": total, "kernel_launches": len(kernels),
-            "launches_per_decode_step_approx": len(kernels) / STEPS,
-            "top_kernels": [{"name": n[:120], "us": v[0], "calls": v[1], "share": v[0] / total}
-                            for n, v in top],
-        }
-    }))
+    mode = args.quantization + (" + w8a8 prefill" if args.w8a8_prefill else "")
+    what = (f"the last decode chunk ({STEPS} steps) of {FRAMES} frames" if args.stage == "decode"
+            else "the prefill (128 slots)")
+    report = {
+        "what": f"1.7B {mode} batch 5, prompt 128: {what}",
+        "wall_us": wall_us, "device_busy_us": busy, "device_idle_share": 1 - busy / wall_us,
+        "kernel_us_total": total, "kernel_launches": len(kernels),
+        "top_kernels": [{"name": n[:120], "us": v[0], "calls": v[1], "share": v[0] / total}
+                        for n, v in top],
+    }
+    if args.stage == "decode":
+        report["launches_per_decode_step_approx"] = len(kernels) / STEPS
+    print(json.dumps({"profile": report}))
     print(smi)
     return 0
 

@@ -15,6 +15,10 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
   between chunks only.
 * The codec vocoder turns the codes into a 24 kHz waveform per length
   bucket.
+* :meth:`QwenTTSModel.from_pretrained` serves a native checkpoint as
+  exported (:meth:`QwenTTSModel.save_checkpoint`, ``models.checkpoint``),
+  converts an HF safetensors directory (``models.qwen.weights``), or
+  builds a preset with random weights.
 
 Sampling reproduces the JAX package's bits: row i's noise at frame f comes
 from ``fold_in(fold_in(PRNGKey(0x5EED), seeds[i]), f)`` through the port's
@@ -37,7 +41,7 @@ from ...utils.tokenizer import load_tokenizer
 from .. import transformer as tfm
 from ..quantization import quantize_stack
 from . import codec as codec_lib
-from .config import PRESETS, QwenTTSConfig
+from .config import PRESETS, QwenTTSConfig, resolve_config
 
 Params = Dict[str, Any]
 
@@ -275,47 +279,106 @@ def _register(module: nn.Module, name: str, value):
     return param
 
 
+def _tree_quantization(params: Params) -> Optional[str]:
+    """"int4" / "int8" when the talker holds such leaves, else None."""
+    blocks = params.get("talker", {}).get("blocks", {})
+    kinds = {k for w in blocks.values() if isinstance(w, dict) for k in ("q4", "q") if k in w}
+    return "int4" if "q4" in kinds else ("int8" if "q" in kinds else None)
+
+
 class QwenTTSModel(nn.Module):
     """Inference wrapper: tokenization, prompt building, chunked decode, vocoder.
 
     ``device=None`` means ``"cuda"``. ``params`` is a nested dict of tensors
-    (``init_params`` or ``from_jax.params_from_numpy``); without it the
-    weights are random from ``seed``. ``quantization="int8"`` quantizes the
-    talker's matmul weights (leaves already quantized stay as they are).
+    (``init_params``, ``from_jax.params_from_numpy`` or a loaded checkpoint);
+    without it the weights are random from ``seed``. ``quantization`` "int8"
+    or "int4" quantizes the talker's matmul weights (leaves already
+    quantized stay as they are); without it, the model reports the
+    quantization its params already carry. ``model_path``, a checkpoint
+    directory, supplies its ``tokenizer.json`` when it has one.
     """
 
     def __init__(self, config: QwenTTSConfig, params: Optional[Params] = None, seed: int = 0,
-                 quantization: Optional[str] = None, device=None):
+                 quantization: Optional[str] = None, device=None,
+                 model_path: Optional[str] = None):
         super().__init__()
         self.config = config
         self.device = torch.device(device or "cuda")
-        self.tokenizer = load_tokenizer(None, vocab_size=config.text_vocab)
+        self.model_path = model_path or config.name
+        self.tokenizer = load_tokenizer(model_path, vocab_size=config.text_vocab)
         if params is None:
             params = init_params(config, seed, self.device)
-        if quantization == "int8":
-            params = {**params, "talker": quantize_stack(params["talker"], "int8")}
-        elif quantization == "int4":
-            raise NotImplementedError("int4 needs the int4 matmul kernel, not ported yet")
+        if quantization in ("int8", "int4"):
+            params = {**params, "talker": quantize_stack(params["talker"], quantization)}
         elif quantization not in (None, "none"):
             raise ValueError(f"Unsupported quantization: {quantization}")
-        self.quantization = quantization
+        self.quantization = _tree_quantization(params)
         #: the registered parameters as a plain nested dict, for the stage functions
         self.params = {key: _register(self, key, value) for key, value in params.items()}
         self.sample_rate = config.codec.sample_rate
 
-    @classmethod
-    def from_pretrained(cls, name: str, seed: int = 0, quantization: Optional[str] = None,
-                        device=None) -> "QwenTTSModel":
-        """A preset (``"1.7B"``, ``"0.6B"``, ``"tiny"``, ...) with random weights.
+    # -- Loading --------------------------------------------------------------
 
-        Checkpoint directories and HF weights are not ported yet.
+    @classmethod
+    def from_pretrained(cls, model_path: str, seed: int = 0, quantization: Optional[str] = None,
+                        device=None) -> "QwenTTSModel":
+        """Build from a native checkpoint dir, an HF safetensors dir or a preset name.
+
+        * A native checkpoint (:meth:`save_checkpoint`) restores the full
+          tree onto ``device`` and is served as exported. An explicit
+          ``quantization`` (``"none"`` meaning dense) that differs from a
+          quantized export raises ``ValueError``; int8 or int4 on a dense
+          export quantizes in the constructor.
+        * A JAX-package (orbax) export raises ``ValueError`` naming the
+          bridge, ``from_jax.params_from_numpy``.
+        * A directory with ``*.safetensors`` goes through the HF loader
+          (``models.qwen.weights``), quantizing on the host.
+        * Anything else resolves a config (a preset name, or the size named
+          in the path) and runs with random weights from ``seed``.
         """
-        if name not in PRESETS:
-            raise NotImplementedError(
-                f"{name!r} is not a preset ({sorted(PRESETS)}); loading checkpoints is not "
-                "ported yet"
-            )
-        return cls(PRESETS[name], seed=seed, quantization=quantization, device=device)
+        from .. import checkpoint as ckpt_lib
+        from .weights import load_checkpoint
+
+        path = str(model_path)
+        if os.path.isdir(path) and (ckpt_lib.is_native_checkpoint(path)
+                                    or ckpt_lib.is_jax_checkpoint(path)):
+            params, manifest = ckpt_lib.load_params(path, family="qwen", device=device)
+            preset = manifest.get("preset", "1.7B")
+            cfg = PRESETS.get(preset) or resolve_config(preset)
+            saved_quant = manifest.get("quantization")
+            if saved_quant == "none":
+                saved_quant = None
+            requested = None if quantization == "none" else quantization
+            if quantization is not None and saved_quant is not None and requested != saved_quant:
+                raise ValueError(
+                    f"Checkpoint at {path} was exported with quantization={saved_quant!r}; "
+                    f"cannot serve as {quantization!r}"
+                )
+            model = cls(cfg, params=params, seed=seed, quantization=requested or saved_quant,
+                        device=device, model_path=path)
+            model.variant = manifest.get("variant")
+            return model
+
+        cfg = resolve_config(path)
+        params = load_checkpoint(path, cfg, quantization=quantization, device=device)
+        return cls(cfg, params=params, seed=seed, quantization=quantization, device=device,
+                   model_path=path)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Export the parameter tree as a native serving checkpoint.
+
+        A quantized model writes its int8 / int4 leaves. The manifest records
+        the CustomVoice/Base ``variant``, as the JAX package's does.
+        """
+        from .. import checkpoint as ckpt_lib
+
+        variant = getattr(self, "variant", None) or (
+            "custom-voice" if "CustomVoice" in str(self.model_path or "") else "base"
+        )
+        ckpt_lib.save_params(
+            path, self.params, family="qwen", preset=self.config.name,
+            quantization=self.quantization, extra={"variant": variant},
+        )
 
     # -- Prompt building ----------------------------------------------------
 

@@ -10,8 +10,10 @@ keys, where the JAX einsum fallback would read the bf16-rounded cache. Both
 decode over a bf16 cache with f32 probabilities.
 
 Greedy codes (``top_k=1``) and sampled codes from explicit seeds come out
-identical, dense and int8: the port's sampler reproduces ``jax.random``'s
-threefry bits. No near-tie flip occurs with these seeds and texts; a flip
+identical, dense, int8, int4, and int8 with w8a8 prefill
+(``RHO_TTS_TPU_W8A8_PREFILL=1``): the port's sampler reproduces
+``jax.random``'s threefry bits, and at fp32 the int4 and w8a8 matmuls agree
+to the order of sums (no int8 activation rounds apart here). No near-tie flip occurs with these seeds and texts; a flip
 would show as a code mismatch from one frame on and would be reported
 here rather than hidden by a looser check.
 """
@@ -70,15 +72,36 @@ def jax_prefill_kernel(monkeypatch):
     jax.clear_caches()
 
 
+@pytest.fixture
+def w8a8_prefill(request, monkeypatch):
+    """``RHO_TTS_TPU_W8A8_PREFILL=1`` for the ``"int8-w8a8"`` cases. JAX reads
+    the flag at trace time, so its caches are cleared around the test."""
+    if getattr(request, "param", None) == "int8-w8a8":
+        monkeypatch.setenv("RHO_TTS_TPU_W8A8_PREFILL", "1")
+        jax.clear_caches()
+        yield
+        jax.clear_caches()
+    else:
+        yield
+
+
 def _pair(params, quant):
+    """The JAX model and the port on the same weights; the port gets the JAX
+    package's quantized leaves (int4 bytes and scales are identical anyway)."""
+    quant = {"int8-w8a8": "int8"}.get(quant, quant)
     jm = JModel(JPRESETS["tiny"], params=params, quantization=quant)
     tp = from_jax.params_from_numpy(jax.tree.map(np.asarray, jm.params), device="cpu")
     tm = TModel(TPRESETS["tiny"], params=tp, device="cpu")
     return jm, tm
 
 
-@pytest.mark.parametrize("quant", [None, "int8"], ids=["dense", "int8"])
-def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, quant):
+@pytest.mark.parametrize(
+    "quant,w8a8_prefill",
+    [(q, q) for q in (None, "int8", "int4", "int8-w8a8")],
+    ids=["dense", "int8", "int4", "int8-w8a8"],
+    indirect=["w8a8_prefill"],
+)
+def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, w8a8_prefill, quant):
     jm, tm = _pair(fp32_params, quant)
     ref = jm.generate_codes(TEXTS, top_k=1, seeds=[0, 1], **GEN)
     ours = tm.generate_codes(TEXTS, top_k=1, seeds=[0, 1], **GEN)
@@ -88,16 +111,20 @@ def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, quant):
 
 
 @pytest.mark.parametrize(
-    "quant,kw",
+    "quant,kw,w8a8_prefill",
     [
-        ("int8", dict(GEN, top_k=8, seeds=[11, 12])),
+        ("int8", dict(GEN, top_k=8, seeds=[11, 12]), None),
         # Every token may be drawn: both rows sample EOS (frames 64 and 94)
         # and the lagged all-done flag stops the loop a chunk early.
-        (None, dict(GEN, min_frames=4, max_frames=256, top_k=67, seeds=[2, 3])),
+        (None, dict(GEN, min_frames=4, max_frames=256, top_k=67, seeds=[2, 3]), None),
+        ("int4", dict(GEN, top_k=8, seeds=[11, 12]), None),
+        ("int8-w8a8", dict(GEN, top_k=8, seeds=[11, 12]), "int8-w8a8"),
     ],
-    ids=["int8-top8", "dense-eos"],
+    ids=["int8-top8", "dense-eos", "int4-top8", "int8-w8a8-top8"],
+    indirect=["w8a8_prefill"],
 )
-def test_sampled_codes_and_waveforms_identical(fp32_params, jax_prefill_kernel, quant, kw):
+def test_sampled_codes_and_waveforms_identical(fp32_params, jax_prefill_kernel, w8a8_prefill,
+                                               quant, kw):
     """Seeded top-k sampling: identical codes; waveforms 1e-4 (fp32 vocoder)."""
     jm, tm = _pair(fp32_params, quant)
     ref_codes = jm.generate_codes(TEXTS, **kw)
@@ -139,8 +166,10 @@ def test_model_parameter_names_follow_the_jax_tree():
     assert names["codec.decoder.ups.0"].shape == (32, 16, 8)  # (Cin, Cout, K)
     assert names["codec.decoder.resblocks.1.convs_d.2"].shape == (8, 8, 3)
     assert tm.params["talker"]["blocks"]["wqkv"]["q"] is names["talker.blocks.wqkv.q"]
-    with pytest.raises(NotImplementedError):
-        TModel.from_pretrained("/some/checkpoint", device="cpu")
+    # A path that is no checkpoint resolves a config from its name and
+    # initialises at random, as the JAX package does.
+    missing = TModel.from_pretrained("/some/checkpoint/qwen-tiny", device="cpu")
+    assert missing.config.name == "tiny" and missing.quantization is None
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -35,6 +35,8 @@ def jax_kernels(monkeypatch):
 
 
 def _params(quant):
+    """fp32 stack weights; ``quant`` is None / False (dense), True or "int8", or "int4",
+    quantized by the JAX package and carried over through the bridge."""
     jcfg = jtfm.TransformerConfig(**CFG, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda: jtfm.init_stack(jax.random.PRNGKey(0), jcfg))
     rng = np.random.default_rng(5)
@@ -47,15 +49,23 @@ def _params(quant):
 
     params = jax.tree.map(init, shapes)
     if quant:
-        params = jq.quantize_stack(params, "int8")
+        params = jq.quantize_stack(params, "int8" if quant is True else quant)
     tparams = from_jax.params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
     return jcfg, params, ttfm.TransformerConfig(**CFG, dtype=torch.float32), tparams
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
-def test_stack_forward_prefill_then_decode(quant, jax_kernels):
+@pytest.mark.parametrize("quant", [False, True, "int4", "int8-w8a8"],
+                         ids=["dense", "int8", "int4", "int8-w8a8"])
+def test_stack_forward_prefill_then_decode(quant, jax_kernels, monkeypatch):
     """fp32 with an f32 cache: 1e-4, the port's fp32 parity tolerance
-    (tests/test_torch_oracle.py); the attention order of sums differs."""
+    (tests/test_torch_oracle.py); the attention order of sums differs. int4
+    runs both halves in one f32 dot (JAX: two dots, added); w8a8 quantizes
+    the prefill's activations to int8 in both packages, decode stays
+    weight-only."""
+    if quant == "int8-w8a8":
+        monkeypatch.setenv("RHO_TTS_TPU_W8A8_PREFILL", "1")
+        jax.clear_caches()  # read at trace time
+        quant = "int8"
     jcfg, jparams, tcfg, tparams = _params(quant)
     rng = np.random.default_rng(0)
     b, p, steps = 3, 12, 8
@@ -130,8 +140,11 @@ def test_int8_matmul_matches_jax():
     ref = np.asarray(jq.matmul(jnp.asarray(x), jw))
     ours = tq.matmul(torch.from_numpy(x), {k: torch.tensor(np.asarray(v)) for k, v in jw.items()})
     np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tq.matmul(torch.from_numpy(x), {"q4": None, "s": None})
+    # {"q4", "s"} leaves now dispatch to the int4 matmul, as in JAX.
+    jw4 = jq.quantize_host(w, "int4")
+    ref4 = np.asarray(jq.matmul(jnp.asarray(x), {k: jnp.asarray(v) for k, v in jw4.items()}))
+    ours4 = tq.matmul(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in jw4.items()})
+    np.testing.assert_allclose(ours4.numpy(), ref4, atol=1e-5, rtol=1e-5)
 
 
 def test_unported_modes_raise():
