@@ -11,6 +11,8 @@ Phases, each fatal on failure:
 2. kernels: run each kernel at the main-path shapes against its plain
    PyTorch version on the card, with the stated tolerance, and time the
    kernel, the plain version and one PyTorch library call as a yardstick;
+   the attention kernels also at the shapes and masks where their designs
+   can go wrong, each case launched twice and compared bit for bit;
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -121,33 +123,65 @@ def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _attn_inputs(gen, q_shape, kv_shape, q_dtype, kv_dtype, kv_pad=0):
+    """Random q, k, v on the card; ``kv_pad`` > 0 makes k and v views of a
+    wider tensor, so their rows are not 16-byte aligned."""
+    q = torch.randn(q_shape, generator=gen, device="cuda").to(q_dtype)
+    wide = (*kv_shape[:-1], kv_shape[-1] + kv_pad)
+    k, v = (torch.randn(wide, generator=gen, device="cuda").to(kv_dtype)[..., :kv_shape[-1]]
+            for _ in range(2))
+    return q, k, v
+
+
+def _held(cases, name, case, out, out2, ref, tol):
+    """Record a case; fail unless finite, within tol of the plain version and
+    bit-identical across two launches on the same inputs."""
+    torch.cuda.synchronize()
+    case.update(max_abs_err=(out.float() - ref.float()).abs().max().item(), tol=tol,
+                bit_identical=bool(torch.equal(out, out2)))
+    cases.append(case)
+    if not bool(torch.isfinite(out).all()) or not case["max_abs_err"] <= tol \
+            or not case["bit_identical"]:
+        raise AssertionError(f"{name} {case}")
+
+
+def _pad_mask(t, pads):
+    return torch.arange(t, device="cuda")[None, :] >= torch.tensor(pads, device="cuda")[:, None]
+
+
 def check_prefill(attn, gen) -> dict:
-    """Prefill attention at the 1.7B main-path shape, left-padded rows."""
+    """Prefill attention at the 1.7B main-path shape, left-padded rows, and
+    the cases where the tensor-core design can go wrong: the causal skip
+    with q_offset, a fully masked row, a ring of more than two key tiles,
+    the tiny preset's head shape, and unaligned rows (the SIMT path). Every
+    case runs twice and must give the same bits."""
     b, t, hq, hkv, d = 5, 128, 16, 8, 128
-    pads = torch.tensor([0, 17, 40, 127, 128], device="cuda")  # last row: all keys masked
-    mask = torch.arange(t, device="cuda")[None, :] >= pads[:, None]
+    pads = [0, 17, 40, 127, 128]  # last row: all keys masked
+    mask = _pad_mask(t, pads)
     cases = []
     main = None
-    for dtype, tol, causal, q_offset, t_q in (
-        # bf16 output: 1 bf16 ulp at |o| < 4 (order of sums differs)
-        (torch.bfloat16, 2e-2, True, None, t),
-        # f32: the CPU parity tolerance of the plain version
-        (torch.float32, 2e-5, True, None, t),
-        (torch.float32, 2e-5, False, None, t),
-        (torch.float32, 2e-5, True, 64, 64),  # a sequence-parallel shard's queries
+    # bf16 output: 1 bf16 ulp at |o| < 4 (order of sums differs);
+    # f32: the CPU parity tolerance of the plain version.
+    for dtype, tol, causal, q_offset, t_q, shape, kv_pad, what in (
+        (torch.bfloat16, 2e-2, True, None, t, None, 0, "main path"),
+        (torch.float32, 2e-5, True, None, t, None, 0, "f32"),
+        (torch.float32, 2e-5, False, None, t, None, 0, "f32 not causal"),
+        (torch.float32, 2e-5, True, 64, 64, None, 0, "f32 sequence-parallel shard"),
+        (torch.bfloat16, 2e-2, True, 64, 64, None, 0, "causal skip with q_offset"),
+        (torch.bfloat16, 2e-2, False, None, t, None, 0, "not causal"),
+        (torch.bfloat16, 2e-2, True, None, 300, (3, 300, 16, 8, 128), 0, "ring of 5 key tiles"),
+        (torch.bfloat16, 2e-2, True, None, 40, (2, 40, 4, 2, 16), 0, "tiny head shape"),
+        (torch.float32, 2e-5, True, None, 40, (2, 40, 4, 2, 16), 0, "tiny head shape f32"),
+        (torch.bfloat16, 2e-2, True, None, t, None, 1, "unaligned rows (SIMT)"),
     ):
-        q = torch.randn((b, t_q, hq, d), generator=gen, device="cuda").to(dtype)
-        k = torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((b, t, hkv, d), generator=gen, device="cuda").to(dtype)
-        out = attn.fused_gqa_attention(q, k, v, mask, causal=causal, q_offset=q_offset)
-        ref = attn.reference_gqa_attention(q, k, v, mask, causal=causal, q_offset=q_offset)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out).all())
-        cases.append({"dtype": str(dtype).split(".")[-1], "causal": causal,
-                      "q_offset": q_offset, "max_abs_err": err, "tol": tol})
-        if not finite or err > tol:
-            raise AssertionError(f"prefill attention {cases[-1]} finite={finite}")
+        cb, ct, chq, chkv, cd = shape or (b, t, hq, hkv, d)
+        cmask = mask if shape is None else _pad_mask(ct, [0, ct // 3, ct][:cb])
+        q, k, v = _attn_inputs(gen, (cb, t_q, chq, cd), (cb, ct, chkv, cd), dtype, dtype, kv_pad)
+        run = lambda: attn.fused_gqa_attention(q, k, v, cmask, causal=causal, q_offset=q_offset)
+        case = {"case": what, "dtype": str(dtype).split(".")[-1], "causal": causal,
+                "q_offset": q_offset, "q": list(q.shape), "kv": list(k.shape)}
+        _held(cases, "prefill attention", case, run(), run(),
+              attn.reference_gqa_attention(q, k, v, cmask, causal=causal, q_offset=q_offset), tol)
         if main is None:
             main = (q, k, v)
     q, k, v = main  # bf16, causal: the main path's call
@@ -174,55 +208,101 @@ def check_prefill(attn, gen) -> dict:
     }
 
 
+def _decode_bound(q, k, mask):
+    """The decode bound for these inputs: q and the output, the mask, and
+    K/V of the valid keys only, except in rows with no valid key, which
+    read every key; the products of the same keys."""
+    keys = int(torch.where(mask.any(dim=1), mask.sum(dim=1), mask.shape[1]).sum())
+    row = k.shape[2] * k.shape[3]
+    return bound_ms(nbytes(q, mask, q) + 2 * keys * row * k.element_size(),
+                    4 * keys * q.shape[2] * q.shape[3], BF16_FLOP_PER_S)
+
+
 def check_decode(dec, gen) -> dict:
-    """Decode attention over the 1.7B main-path cache, ragged mask."""
+    """Decode attention over the 1.7B main-path cache, and the cases where
+    the split-S design can go wrong: the main path's real positions (left
+    pads of a 128-slot prompt, keys past the slot masked, so whole slices are
+    skipped), a row with no valid key, only the newest slot valid, an f8
+    cache at another split count, the tiny preset's head shape, and unaligned
+    rows. Every case runs twice and must give the same bits (the merge's
+    fixed order)."""
     b, s, hq, hkv, d = 5, 384, 16, 8, 128
-    valid_to = torch.tensor([384, 300, 129, 200, 5], device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     key_pos = torch.arange(s, device="cuda")[None, :]
-    mask = (key_pos < valid_to[:, None]) & (key_pos >= torch.tensor(
-        [0, 12, 0, 100, 0], device="cuda")[:, None])  # left padding too
+    ragged = (key_pos < torch.tensor([384, 300, 129, 200, 5], device="cuda")[:, None]) & (
+        key_pos >= torch.tensor([0, 12, 0, 100, 0], device="cuda")[:, None])  # left padding too
+    prompt_pads = torch.tensor([31, 40, 105, 17, 0], device="cuda")[:, None]  # 128-slot bucket
+
+    def at_slot(slot):
+        return (key_pos <= slot) & (key_pos >= prompt_pads)
+
+    no_key = ragged.clone()
+    no_key[4] = False
+    newest = (key_pos == 200).expand(b, s).contiguous()
     cases = []
     tensors = {}
-    for q_dtype, kv_dtype, tol in (
-        (torch.bfloat16, torch.bfloat16, 2e-2),  # main path: 1 bf16 ulp at |o| < 4
-        (torch.bfloat16, torch.float8_e4m3fn, 2e-2),  # f8 cache, same f32 math
-        (torch.float32, torch.float32, 2e-5),
+    bf, f8, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+    for q_dtype, kv_dtype, tol, mask, shape, kv_pad, what in (
+        (bf, bf, 2e-2, ragged, None, 0, "main"),  # 1 bf16 ulp at |o| < 4
+        (bf, f8, 2e-2, ragged, None, 0, "f8 cache"),  # same f32 math
+        (f32, f32, 2e-5, ragged, None, 0, "f32"),
+        (bf, bf, 2e-2, at_slot(128), None, 0, "slot 128"),
+        (bf, bf, 2e-2, at_slot(200), None, 0, "slot 200"),
+        (bf, bf, 2e-2, at_slot(383), None, 0, "slot 383"),
+        (f32, f32, 2e-5, no_key, None, 0, "a row with no valid key"),
+        (bf, bf, 2e-2, newest, None, 0, "only the newest slot valid"),
+        (bf, f8, 2e-2, None, (2, 200, 16, 8, 128), 0, "f8 cache, other split count"),
+        (f32, f32, 2e-5, None, (2, 72, 4, 2, 16), 0, "tiny head shape"),
+        (bf, bf, 2e-2, None, (2, 72, 4, 2, 16), 0, "tiny head shape bf16"),
+        (bf, bf, 2e-2, ragged, None, 1, "unaligned rows (scalar loads)"),
     ):
-        q = torch.randn((b, 1, hq, d), generator=gen, device="cuda").to(q_dtype)
-        k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(kv_dtype)
-        v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(kv_dtype)
-        out = dec.decode_gqa_attention(q, k, v, mask)
-        ref = dec.reference_decode_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out).all())
-        name = f"{str(q_dtype).split('.')[-1]}/{str(kv_dtype).split('.')[-1]}"
-        cases.append({"q/kv": name, "max_abs_err": err, "tol": tol})
-        if not finite or err > tol:
-            raise AssertionError(f"decode attention {cases[-1]} finite={finite}")
-        tensors[name] = (q, k, v)
-    q, k, v = tensors["bfloat16/bfloat16"]
+        cb, cs, chq, chkv, cd = shape or (b, s, hq, hkv, d)
+        if mask is None:
+            kp = torch.arange(cs, device="cuda")[None, :]
+            mask = (kp >= torch.tensor([0, 9], device="cuda")[:, None]) & (kp <= cs - 30)
+        q, k, v = _attn_inputs(gen, (cb, 1, chq, cd), (cb, cs, chkv, cd), q_dtype, kv_dtype,
+                               kv_pad)
+        run = lambda: dec.decode_gqa_attention(q, k, v, mask)
+        case = {"case": what, "q/kv": f"{str(q_dtype).split('.')[-1]}/"
+                f"{str(kv_dtype).split('.')[-1]}", "kv": list(k.shape),
+                "splits": dec.plan_splits(cs, cb * chkv, sms)}
+        _held(cases, "decode attention", case, run(), run(),
+              dec.reference_decode_attention(q, k, v, mask), tol)
+        tensors[what] = (q, k, v, mask)
     group = hq // hkv
-    kernel_ms = time_ms(lambda: dec.decode_gqa_attention(q, k, v, mask))
+
+    def timed(what):
+        q, k, v, mask = tensors[what]
+        qh, kh, vh = q.transpose(1, 2), repeat_kv(k, group), repeat_kv(v, group)
+        return (time_ms(lambda: dec.decode_gqa_attention(q, k, v, mask)),
+                time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask[:, None, None, :])),
+                _decode_bound(q, k, mask)[0])
+
+    q, k, v, mask = tensors["main"]
+    kernel_ms, library_ms, _ = timed("main")
     kernel_host_us = host_us(lambda: dec.decode_gqa_attention(q, k, v, mask))
     plain_ms = time_ms(lambda: dec.reference_decode_attention(q, k, v, mask))
-    q8, k8, v8 = tensors["bfloat16/float8_e4m3fn"]
+    q8, k8, v8, _ = tensors["f8 cache"]
     f8_ms = time_ms(lambda: dec.decode_gqa_attention(q8, k8, v8, mask))
-    qh, kh, vh = q.transpose(1, 2), repeat_kv(k, group), repeat_kv(v, group)
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask[:, None, None, :]))
-    ops = 4 * d * b * hq * s
-    bms, by = bound_ms(nbytes(q, k, v, mask, q), ops, BF16_FLOP_PER_S)
-    f8_bound, _ = bound_ms(nbytes(q8, k8, v8, mask, q8), ops, BF16_FLOP_PER_S)
+    bms, by = _decode_bound(q, k, mask)
+    full_bms, _ = bound_ms(nbytes(q, k, v, mask, q), 4 * d * b * hq * s, BF16_FLOP_PER_S)
+    f8_bound, _ = _decode_bound(q8, k8, mask)
+    at_slots = {}
+    for slot in (128, 200, 383):
+        k_ms, lib_ms, b_ms = timed(f"slot {slot}")
+        at_slots[slot] = {"ms": k_ms, "library_ms": lib_ms, "bound_ms": b_ms}
     return {
         "name": "decode_gqa_attention", "route": "cuda",
         "source": "src/rho_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "src/rho_tts_tpu/ops/pallas/decode_attention.py:85",
         "shape": f"q({b},1,{hq},{d}) cache({b},{s},{hkv},{d}) bf16",
+        "splits": dec.plan_splits(s, b * hkv, sms),
         "max_abs_err": cases[0]["max_abs_err"], "tol": cases[0]["tol"], "cases": cases,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-        "f8_cache_ms": f8_ms, "f8_cache_bound_ms": f8_bound, "host_us": kernel_host_us,
+        "bound_ms": bms, "bound_by": by, "full_cache_bound_ms": full_bms,
+        "library_ms": library_ms, "f8_cache_ms": f8_ms, "f8_cache_bound_ms": f8_bound,
+        "host_us": kernel_host_us, "at_main_path_slots": at_slots,
     }
 
 
@@ -675,9 +755,12 @@ def main() -> int:
             f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}), "
             f"host {k['host_us']:.1f} us a call")
-        for case in k["cases"]:
-            if "ms" in case and case is not k["cases"][0]:
-                log(f"  case {json.dumps(case)}")
+        for case in k["cases"][1:]:
+            log(f"  case {json.dumps(case)}")
+        if k["name"] == "decode_gqa_attention":
+            log(f"  splits {k['splits']}, full-cache bound {k['full_cache_bound_ms']:.5f} ms, "
+                f"f8 cache {k['f8_cache_ms']:.4f} ms, at the main path's slots "
+                f"{json.dumps(k['at_main_path_slots'])}")
 
     for quantization, w8a8 in ((None, False), ("int4", False), ("int8", True)):
         ref = check_against_cpu(qmodel, quantization, w8a8)

@@ -5,13 +5,17 @@ Counterpart of ``rho_tts_tpu/ops/pallas/attention.py``.
 Kernel: ``csrc/attention.cu`` replaces the Pallas kernel
 ``fused_gqa_attention`` (``_attention_kernel``). At the 1.7B main-path
 shape (q ``(5,128,16,128)`` bf16, k/v ``(5,128,8,128)``) it is bound by
-its bytes (~7.9 MB, ~2.3 us at 3.35 TB/s), far above its products; in
-practice the launch costs more than either. Design: one block per
-(64-query tile, query head, row), an online softmax in f32 over key tiles
-staged in shared memory, the ``(B,T,H,D)`` / ``(B,S,Hkv,D)`` layouts read
-in place through strides (no transpose, no KV copy for GQA), and the
-reference's finite -1e30 fill so that fully masked (left-padded) rows stay
-finite. See the source for the details.
+its bytes (~7.9 MB, ~2.3 us at 3.35 TB/s), far above its products, and
+beyond them by latency. Design, for bf16: one block per (64-query tile,
+query head, row); Q and 64-key K/V tiles copied by 16-byte ``cp.async``
+into a double-buffered ring in shared memory, read in place through the
+caller's strides (no transpose, no KV copy for GQA); QK^T and PV on the
+tensor cores (``mma.sync`` m16n8k16) with an online softmax in f32, P
+entering as a hi + lo pair of bf16 so that the probabilities keep ~16
+bits; key tiles past the causal diagonal skipped where that is exact. f32
+inputs (and bf16 not 16-byte aligned) take a SIMT loop in f32. Both keep
+the reference's finite -1e30 fill, so fully masked (left-padded) rows
+average V and stay finite. See the source for the details.
 
 Dispatch: CPU tensors take :func:`reference_gqa_attention`; CUDA tensors
 launch the kernel or raise. ``launches`` counts the kernel's launches.
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -64,6 +68,7 @@ def reference_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: O
 
 
 _fn = None
+_plans: Dict[tuple, tuple] = {}
 
 
 def _kernel():
@@ -72,7 +77,8 @@ def _kernel():
         fn = _build.load("attention").rho_prefill_attention
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         _fn = fn
     return _fn
@@ -106,6 +112,24 @@ def _check(q, k, v, attn_mask):
             raise ValueError(f"fused_gqa_attention: {name}'s last dimension must be contiguous")
 
 
+def _plan(key, q, k, v, attn_mask):
+    """Checks and the strides array of one call signature, computed once."""
+    _check(q, k, v, attn_mask)
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    # out is allocated contiguous (B,T,Hq,D).
+    strides = (ctypes.c_longlong * 13)(
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        t * hq * d, hq * d, d,
+        attn_mask.stride(0),
+    )
+    plan = ((b, t, hq, d), q.device.index, (_DTYPES[q.dtype], b, t, s, hq, hkv, d, strides))
+    _plans[key] = plan
+    return plan
+
+
 def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optional[int] = None):
     """Fused attention; returns ``(B,T,Hq,D)`` in q's dtype.
 
@@ -115,25 +139,20 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
     global launches
     if q.device.type == "cpu":
         return reference_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=q_offset)
-    _check(q, k, v, attn_mask)
-    b, t, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 13)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        attn_mask.stride(0),
+    key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+           v.shape, v.stride(), v.dtype, v.device, attn_mask.shape, attn_mask.stride(),
+           attn_mask.dtype, attn_mask.device)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plan(key, q, k, v, attn_mask)
+    out_shape, dev_index, args = plan
+    out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
+    rc = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_mask.data_ptr(), out.data_ptr(), *args,
+        0 if q_offset is None else int(q_offset), int(bool(causal)), dev_index,
+        # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+        torch._C._cuda_getCurrentRawStream(dev_index),
     )
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_mask.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, t, s, hq, hkv, d, strides,
-            0 if q_offset is None else int(q_offset), int(bool(causal)), stream,
-        )
     if rc != 0:
         raise RuntimeError(f"prefill attention kernel launch failed: cudaError_t {rc}")
     launches += 1

@@ -7,23 +7,30 @@ Kernel: ``csrc/decode_attention.cu`` replaces the Pallas kernel
 kernel is opt-in; in the port it is the attention of every decode step. At
 the 1.7B main-path shape (q ``(5,1,16,128)`` bf16, a ``(5,384,8,128)`` bf16
 cache per layer) it is bound by reading K and V (~7.9 MB, ~2.3 us at
-3.35 TB/s); the launch costs more. Design: one block per (KV head, row)
-holding that head's G = Hq/Hkv queries, four warps splitting the keys with
-an online softmax each, merged in shared memory. K/V are converted to f32
-as they load (f32, bf16 or float8 e4m3 storage) and the probabilities stay
-f32, as in the Pallas kernel and :func:`reference_decode_attention` (JAX's
-default einsum path casts probabilities to bf16 for f8 caches only). The
-40 blocks of the main path underfill the card's 132 SMs; split-S is later
-work.
+3.35 TB/s, less where masked slots are skipped). Design: split-S
+(flash-decoding). :func:`plan_splits` cuts S into slices of at most 64
+keys so that the grid ``(splits, Hkv, B)`` holds at least two blocks per
+SM; each block loads its whole K/V slice with 16-byte asynchronous copies,
+skips masked keys of rows that have a valid key (their probability is
+exactly 0), and the last block of each (row, KV head) merges the per-split
+softmax states in split order, so the result is the same bits on every
+launch. K/V are converted to f32 as they are used (f32, bf16 or float8
+e4m3 storage) and the probabilities stay f32, as in the Pallas kernel and
+:func:`reference_decode_attention` (JAX's default einsum path casts
+probabilities to bf16 for f8 caches only).
 
 Dispatch: CPU tensors take :func:`reference_decode_attention`; CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches.
+launch the kernel or raise. ``launches`` counts the kernel's launches. The
+merge's workspace and tickets are kept per (device, stream) and the tickets
+reset themselves, so launches on several streams of one device do not
+share them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -36,6 +43,8 @@ _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _MAX_GROUP = 8
 _MAX_D = 128
+MAX_SLICE = 64  # keys per block: the kernel's shared-memory slice
+_MIN_SLICE = 16
 
 
 def reference_decode_attention(q, k, v, mask):
@@ -57,19 +66,57 @@ def reference_decode_attention(q, k, v, mask):
     return out.reshape(b, t, hq, d).to(q.dtype)
 
 
-_fn = None
+def plan_splits(s: int, units: int, sms: int) -> Tuple[int, int]:
+    """``(splits, slice)`` for S keys and ``units`` = B * Hkv (row, KV head) pairs.
+
+    The slice is the largest multiple of 8 keys, from 16 to ``MAX_SLICE``,
+    that still gives ``splits * units`` two blocks for every SM; where even
+    slices of 16 keys cannot, slices of 16. Split i covers keys ``[i*slice,
+    min(S, (i+1)*slice))``: every key exactly once, every split non-empty.
+    """
+    want = _cdiv(2 * sms, units)
+    slice_ = min(MAX_SLICE, max(_MIN_SLICE, s // want // 8 * 8))
+    return _cdiv(s, slice_), slice_
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_fns = None
+_sms: Dict[torch.device, int] = {}
+_plans: Dict[tuple, tuple] = {}
+_buffers: Dict[Tuple[torch.device, int], tuple] = {}
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("decode_attention").rho_decode_attention
+    global _fns
+    if _fns is None:
+        lib = _build.load("decode_attention")
+        fn = lib.rho_decode_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
         ]
-        _fn = fn
-    return _fn
+        ws = lib.rho_decode_workspace
+        ws.restype = None
+        ws.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        _fns = (fn, ws)
+    return _fns
+
+
+def _workspace(device: torch.device, stream: int, floats: int, tickets: int) -> Tuple[int, int]:
+    """Pointers to the merge's f32 workspace and tickets for launches on
+    ``stream``: launches on one stream run in order and each leaves its
+    tickets zero, so they can share them; each stream has its own."""
+    key = (device, stream)
+    buf = _buffers.get(key)
+    if buf is None or buf[0].numel() < floats or buf[1].numel() < tickets:
+        work = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=device)
+        ticket = torch.zeros(max(tickets, 1024), dtype=torch.int32, device=device)
+        buf = (work, ticket, work.data_ptr(), ticket.data_ptr())
+        _buffers[key] = buf
+    return buf[2], buf[3]
 
 
 def _check(q, k, v, mask):
@@ -104,6 +151,35 @@ def _check(q, k, v, mask):
             raise ValueError(f"decode_gqa_attention: {name}'s last dimension must be contiguous")
 
 
+def _plan(key, q, k, v, mask):
+    """Checks, splits, workspace sizes and the strides array of one call
+    signature, computed once: the decode loop calls with the same shapes
+    28 times a step."""
+    _check(q, k, v, mask)
+    b, _, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, slice_ = plan_splits(s, b * hkv, _sms[dev])
+    floats, tickets = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    _kernel()[1](b, hq, hkv, d, splits, ctypes.byref(floats), ctypes.byref(tickets))
+    # out is allocated contiguous (B,1,Hq,D): its strides are (Hq*D, _, D, 1).
+    strides = (ctypes.c_longlong * 11)(
+        q.stride(0), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        hq * d, d,
+        mask.stride(0),
+    )
+    plan = (
+        (b, 1, hq, d), dev.index, floats.value, tickets.value,
+        (_Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], b, s, hq, hkv, d, splits, slice_, strides),
+    )
+    _plans[key] = plan
+    return plan
+
+
 def decode_gqa_attention(q, k, v, mask):
     """Decode attention; returns ``(B,1,Hq,D)`` in q's dtype.
 
@@ -113,24 +189,23 @@ def decode_gqa_attention(q, k, v, mask):
     global launches
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, mask)
-    _check(q, k, v, mask)
-    b, _, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 11)(
-        q.stride(0), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(2),
-        mask.stride(0),
+    key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+           v.shape, v.stride(), v.dtype, v.device, mask.shape, mask.stride(), mask.dtype,
+           mask.device)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plan(key, q, k, v, mask)
+    out_shape, dev_index, floats, n_tickets, args = plan
+    out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
+    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev_index)
+    work = tickets = None
+    if floats:
+        work, tickets = _workspace(q.device, stream, floats, n_tickets)
+    rc = _kernel()[0](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), work, tickets,
+        *args, dev_index, stream,
     )
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], b, s, hq, hkv, d, strides, stream,
-        )
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
     launches += 1
