@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    PyTorch version on the card, with the stated tolerance, and time the
    kernel, the plain version and one PyTorch library call as a yardstick;
    the attention kernels also at the shapes and masks where their designs
-   can go wrong, each case launched twice and compared bit for bit;
+   can go wrong; every case launched twice and compared bit for bit; the
+   int4 and w8a8 cases with their launch plans;
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -30,11 +31,19 @@ Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
 repository's ``src/`` beside it.
+
+``--parent DIR`` (optional) also times, in phase 2, the int4 and w8a8
+kernels of another checkout of the repository unpacked at DIR (for
+example ``git archive <commit>`` under ``build/``), built from its own
+sources: ``parent_ms`` beside each case's ``ms``.
 """
 
 from __future__ import annotations
 
+import argparse
 import gc
+import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -311,11 +320,13 @@ def _quantized_weight(quant, k, n, gen):
     return quant(w)
 
 
-def check_w8a8(qz, w8, gen) -> dict:
+def check_w8a8(qz, w8, gen, parent=None) -> dict:
     """w8a8 matmul at every 1.7B prefill shape (M = 5 rows x 128 slots):
-    bit-identical to the plain version in every case."""
+    bit-identical to the plain version in every case and across two
+    launches; ``parent``, another tree's wrapper module, is timed beside it."""
     cases = []
     main = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m, k, n, out_dtype in (
         (640, 2048, 6144, torch.bfloat16),  # w_gate / w_up: the main case
         (640, 6144, 2048, torch.bfloat16),  # w_down
@@ -323,6 +334,7 @@ def check_w8a8(qz, w8, gen) -> dict:
         (640, 2048, 2048, torch.bfloat16),  # wo
         (637, 2048, 2048, torch.bfloat16),  # ragged M
         (640, 2048, 4096, torch.float32),   # f32 output
+        (70, 96, 100, torch.bfloat16),      # N % 16 != 0: the mma.sync path
     ):
         qw = _quantized_weight(qz.quantize_weight, k, n, gen)
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
@@ -331,22 +343,29 @@ def check_w8a8(qz, w8, gen) -> dict:
         xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
         args = (xq, sx, qw["q"], qw["s"], out_dtype)
         out = w8.w8a8_matmul(*args)
+        out2 = w8.w8a8_matmul(*args)
         ref = w8.reference_w8a8_matmul(*args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         case = {"m": m, "k": k, "n": n, "out": str(out_dtype).split(".")[-1],
-                "max_abs_err": err, "tol": 0.0, "bit_identical": bool(torch.equal(out, ref))}
+                "plan": {"tokens_per_block": w8.plan(m, k, n, sms)},
+                "max_abs_err": err, "tol": 0.0, "bit_identical": bool(torch.equal(out, ref)),
+                "bit_identical_across_launches": bool(torch.equal(out, out2))}
         cases.append(case)
-        if not case["bit_identical"] or not bool(torch.isfinite(out).all()):
+        if not (case["bit_identical"] and case["bit_identical_across_launches"]) \
+                or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"w8a8 matmul not bit-identical to its plain version: {case}")
         kernel_ms = time_ms(lambda: w8.w8a8_matmul(*args))
         case["host_us"] = host_us(lambda: w8.w8a8_matmul(*args))
         plain_ms = time_ms(lambda: w8.reference_w8a8_matmul(*args))
-        library_ms = time_ms(lambda: torch._int_mm(xq, qw["q"]))
+        library_ms = time_ms(lambda: torch._int_mm(xq, qw["q"])) if m % 8 == 0 and n % 8 == 0 \
+            else None
         out_bytes = m * n * out.element_size()
         case["bound_ms"], case["bound_by"] = bound_ms(
             nbytes(xq, sx, qw["q"], qw["s"]) + out_bytes, 2 * m * k * n, INT8_OP_PER_S)
         case.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms)
+        if parent is not None:
+            case["parent_ms"] = time_ms(lambda: parent.w8a8_matmul(*args))
         if main is None:
             main = case
     return {
@@ -362,27 +381,35 @@ def check_w8a8(qz, w8, gen) -> dict:
     }
 
 
-def check_int4(qz, i4, gen) -> dict:
+def check_int4(qz, i4, gen, parent=None) -> dict:
     """int4 matmul at every 1.7B decode (M = 5) and prefill (M = 640) shape,
-    and two products at once on two streams (split-K tickets per stream).
-    Tolerance: bf16 out within 2e-2 * max|ref| + 1e-3 (bf16 rounding of
-    the output, another order of f32 sums); f32 out within 1e-5 of max|ref|."""
+    the other paths' shapes, and products on two streams at once. Every
+    case is launched twice and must give the same bits; its launch plan is
+    reported. Tolerance: bf16 out within 2e-2 * max|ref| + 1e-3 (bf16
+    rounding of the output, another order of f32 sums); f32 out within 1e-5
+    of max|ref|. ``parent``, another tree's wrapper module, is timed beside it."""
     cases = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def held(case, out, ref):
+    def held(case, out, same, ref):
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         bf16 = out.dtype == torch.bfloat16
-        case.update(max_abs_err=err, tol=2e-2 * scale + 1e-3 if bf16 else 1e-5 * scale)
+        case.update(max_abs_err=err, tol=2e-2 * scale + 1e-3 if bf16 else 1e-5 * scale,
+                    bit_identical_across_launches=same)
         cases.append(case)
-        if not bool(torch.isfinite(out).all()) or err > case["tol"]:
+        if not bool(torch.isfinite(out).all()) or err > case["tol"] \
+                or not case["bit_identical_across_launches"]:
             raise AssertionError(f"int4 matmul disagrees with its plain version: {case}")
 
     shapes = ((2048, 6144), (6144, 2048), (2048, 4096), (2048, 2048))  # gate/up, down, qkv, o
     for m, k, n, dtype in (
         *((5, k, n, torch.bfloat16) for k, n in shapes),    # decode; the first is the main case
-        *((640, k, n, torch.bfloat16) for k, n in shapes),  # prefill (tensor cores)
+        *((640, k, n, torch.bfloat16) for k, n in shapes),  # prefill (wgmma)
         (637, 2048, 2048, torch.bfloat16),  # ragged M
+        (16, 2048, 2048, torch.bfloat16),   # the GEMV's largest M: two token tiles
+        (40, 2000, 96, torch.bfloat16),     # K/2 not a multiple of the 64-row stage
+        (70, 2048, 100, torch.bfloat16),    # N % 16 != 0: the GEMV at prefill M
         (5, 2048, 6144, torch.float32),     # f32: the GEMV path
         (640, 6144, 2048, torch.float32),
     ):
@@ -390,11 +417,13 @@ def check_int4(qz, i4, gen) -> dict:
         x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         args = (x, qw["q4"], qw["s"])
         out = i4.int4_matmul(*args)
+        out2 = i4.int4_matmul(*args)
         ref = i4.reference_int4_matmul(*args)
         torch.cuda.synchronize()
-        case = {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1]}
-        held(case, out, ref)
-        if dtype == torch.float32:
+        case = {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1],
+                "plan": i4.plan(dtype, m, k // 2, n, sms)}
+        held(case, out, bool(torch.equal(out, out2)), ref)
+        if dtype == torch.float32 or (k, n) not in shapes or m not in (5, 640):
             continue
         w_deq = (i4.unpack_int4(qw["q4"]) * qw["s"]).to(dtype)  # for the yardstick
         kernel_ms = time_ms(lambda: i4.int4_matmul(*args))
@@ -404,8 +433,11 @@ def check_int4(qz, i4, gen) -> dict:
         case["bound_ms"], case["bound_by"] = bound_ms(
             nbytes(x, qw["q4"], qw["s"], out), 2 * m * k * n, BF16_FLOP_PER_S)
         case.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms)
+        if parent is not None:
+            case["parent_ms"] = time_ms(lambda: parent.int4_matmul(*args))
 
-    # Split-K decode products interleaved on two streams (16 column tiles each).
+    # Decode products interleaved on two streams: the kernel keeps no state
+    # between launches, so concurrent launches cannot disturb each other.
     pairs = []
     for k, n in ((2048, 2048), (6144, 2048)):
         qw = _quantized_weight(qz.pack_int4, k, n, gen)
@@ -423,21 +455,37 @@ def check_int4(qz, i4, gen) -> dict:
         torch.cuda.current_stream().wait_stream(st)
     for j, args in enumerate(pairs):
         ref = i4.reference_int4_matmul(*args)
-        out = max(outs[j], key=lambda o: (o.float() - ref.float()).abs().max().item())
         held({"m": 5, "k": args[0].shape[1], "n": 2048, "dtype": "bfloat16",
-              "two_streams": 32}, out, ref)
+              "two_streams": 32}, outs[j][0],
+             all(torch.equal(o, outs[j][0]) for o in outs[j]), ref)
     main = cases[0]
     return {
         "name": "int4_matmul", "route": "cuda",
         "source": "src/rho_tts_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "src/rho_tts_tpu/ops/pallas/int4_matmul.py:123",
         "shape": f"x({main['m']},{main['k']}) bf16 x q4({main['k'] // 2},{main['n']}) packed int4",
+        "plan": main["plan"],
         "max_abs_err": main["max_abs_err"], "tol": main["tol"], "cases": cases,
         "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "host_us": main["host_us"],
         "library": "torch.matmul(x, w) on the pre-dequantized bf16 weight",
     }
+
+
+def load_parent(root: str):
+    """The int4 and w8a8 wrapper modules of the checkout at ``root``,
+    imported as another package so both trees live in one process; the
+    parent builds its kernels from its own sources into its own build/."""
+    pkg = os.path.join(os.path.abspath(root), "src", "rho_tts_tpu_torch")
+    name = "parent_rho_tts_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return (importlib.import_module(name + ".ops.cuda.int4_matmul"),
+            importlib.import_module(name + ".ops.cuda.w8a8_matmul"))
 
 
 # ---------------------------------------------------------------------------
@@ -712,7 +760,11 @@ def run_w8a8_prefill(qmodel, kmods, int8_prefill_ms: float) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
+    parser.add_argument("--parent", default=None,
+                        help="another checkout whose int4 and w8a8 kernels phase 2 also times")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA device is required",
               file=sys.stderr)
@@ -747,9 +799,16 @@ def main() -> int:
     for name, text in _build.build_log.items():
         print(f"--- nvcc {name}.cu ---\n{text}", file=sys.stderr)
 
+    parent_i4 = parent_w8 = None
+    if args.parent is not None:
+        t0 = time.perf_counter()
+        parent_i4, parent_w8 = load_parent(args.parent)
+        parent_i4._kernel(), parent_w8._kernel()
+        log(f"phase 2 parent: {args.parent} built in {time.perf_counter() - t0:.2f} s")
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_prefill(attn, gen), check_decode(dec, gen), check_w8a8(qz, w8, gen),
-               check_int4(qz, i4, gen)]
+    kernels = [check_prefill(attn, gen), check_decode(dec, gen),
+               check_w8a8(qz, w8, gen, parent_w8), check_int4(qz, i4, gen, parent_i4)]
     for k in kernels:
         log(f"phase 2 {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}), "
             f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
@@ -757,6 +816,8 @@ def main() -> int:
             f"host {k['host_us']:.1f} us a call")
         for case in k["cases"][1:]:
             log(f"  case {json.dumps(case)}")
+        if "parent_ms" in k["cases"][0]:
+            log(f"  parent's kernel at the main case: {k['cases'][0]['parent_ms']:.4f} ms")
         if k["name"] == "decode_gqa_attention":
             log(f"  splits {k['splits']}, full-cache bound {k['full_cache_bound_ms']:.5f} ms, "
                 f"f8 cache {k['f8_cache_ms']:.4f} ms, at the main path's slots "

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 at first use, into ``build/rho_tts_tpu_torch/`` at the repository root.
 The sources are compiled in parallel, one ``nvcc`` process each. A library
-is named after a hash of its source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.
+is named after a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.
 
 Nothing here falls back: a missing ``nvcc`` or a failed compile raises.
 """
@@ -53,8 +54,13 @@ def _nvcc() -> str:
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+    """The library of ``src``, named after its source, every shared header
+    of ``csrc/`` (any of them may be included) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

@@ -10,9 +10,12 @@ unpacks the nibbles in registers, multiplies them by x and adds both halves
 into ONE f32 accumulator, then applies the per-channel scale and rounds once
 to x's dtype. It never writes a dequantized weight. At decode (M = 5) it is
 bound by reading the packed bytes (1.9 us for (2048,6144) at 3.35 TB/s): a
-split-K GEMV with a fixed-order reduction fills the card even at N = 2048.
-At prefill (M = 640, bf16) it is bound by the bf16 operations: 64x64 tiles
-of ``mma.sync`` m16n8k16 products. f32 inputs take the GEMV path at any M.
+GEMV whose K-splits of one column tile form a thread block cluster and
+merge their partial sums in split order through distributed shared memory
+(:func:`plan_gemv` picks the tile width and the cluster). At prefill (M >
+16, bf16) it is bound by the bf16 operations: a TMA-fed ``wgmma`` mainloop
+with the unpacked weight as the register A operand (:func:`plan`). f32
+inputs take the GEMV path at any M.
 
 :func:`reference_int4_matmul` follows the same order of arithmetic: one
 f32 dot of x against the unpacked (K,N) nibble matrix, then ``* s``, then
@@ -23,9 +26,8 @@ order of the sums only).
 
 Dispatch: CPU tensors take :func:`reference_int4_matmul`; CUDA tensors
 launch the kernel or raise. ``launches`` counts the kernel's launches. The
-GEMV path's tickets are kept per (device, stream) and reset by the kernel
-itself, so int4 products on several streams of one device do not share
-them.
+kernel keeps no state between launches, so products on several streams
+never share anything.
 """
 
 from __future__ import annotations
@@ -62,34 +64,59 @@ def reference_int4_matmul(x, q4, s):
     return (acc * s).to(x.dtype)
 
 
-_fns = None
-_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+GEMV_MAX_M = 16  # bf16 rows up to which the GEMV path runs; f32 always takes it
+MAX_CLUSTER = 8  # the portable thread block cluster size
+_MIN_SPLIT_ROWS = 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_gemv(m: int, kh: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """``(ct, cluster, slice)`` of the GEMV for M rows, kh packed rows, N columns.
+
+    ct is the column tile (bytes of a packed row a block reads), cluster the
+    number of K-splits of one tile (the blocks of one thread block cluster),
+    slice the packed rows of a split, a multiple of 16. The cluster is the
+    largest up to ``MAX_CLUSTER`` that keeps 16 packed rows a split (more,
+    shorter splits finish sooner: each block's copies, x and merge are a
+    chain of latencies); the tile is 128 columns where that grid fills every
+    SM, else 64. Split i covers packed rows ``[i*slice, min(kh,
+    (i+1)*slice))``: every row exactly once, every split non-empty.
+    """
+    cluster = max(1, min(MAX_CLUSTER, kh // _MIN_SPLIT_ROWS))
+    slice_ = _cdiv(_cdiv(kh, cluster), 16) * 16
+    cluster = _cdiv(kh, slice_)
+    tiles = (1 if m <= 16 else _cdiv(m, 8)) * cluster
+    ct = 128 if _cdiv(n, 128) * tiles >= sms else 64
+    return ct, cluster, slice_
+
+
+def plan(x_dtype: torch.dtype, m: int, kh: int, n: int, sms: int) -> tuple:
+    """The kernel's launch plan: ``("wgmma", bt)`` for bf16 x with M > 16
+    (kh % 8 == 0, N % 16 == 0, as TMA needs): blocks of 128 columns by
+    ``bt`` tokens, 128, or 64 for M <= 64; otherwise ``("gemv", ct,
+    cluster, slice)`` from :func:`plan_gemv`. ``sms`` is the card's count
+    of streaming multiprocessors."""
+    if x_dtype == torch.bfloat16 and m > GEMV_MAX_M and kh % 8 == 0 and n % 16 == 0:
+        return ("wgmma", 128 if m > 64 else 64)
+    return ("gemv",) + plan_gemv(m, kh, n, sms)
+
+
+_fn = None
+_sms: Dict[torch.device, int] = {}
+_plans: Dict[tuple, tuple] = {}
 
 
 def _kernel():
-    global _fns
-    if _fns is None:
-        lib = _build.load("int4_matmul")
-        fn = lib.rho_int4_matmul
+    global _fn
+    if _fn is None:
+        fn = _build.load("int4_matmul").rho_int4_matmul
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        ws = lib.rho_int4_workspace
-        ws.restype = None
-        ws.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 2
-        _fns = (fn, ws)
-    return _fns
-
-
-def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """The split-K tickets of launches on ``stream``: launches on one stream
-    run in order and each leaves its tickets zero, so they can share them;
-    each stream has its own, so launches on two streams never race."""
-    key = (device, stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[key] = buf
-    return buf
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        _fn = fn
+    return _fn
 
 
 def _check(x2, q4, s):
@@ -117,6 +144,25 @@ def _check(x2, q4, s):
             raise ValueError(f"int4_matmul: {name} must be 16-byte aligned")
 
 
+def _plan(key, x, q4, s):
+    """Checks and launch arguments of one call signature, computed once:
+    the decode loop calls with the same shapes 140 times a step."""
+    x2 = x.reshape(-1, x.shape[-1])
+    _check(x2, q4, s)
+    if not x.is_contiguous():
+        raise ValueError("int4_matmul: x must be contiguous")
+    m = x2.shape[0]
+    kh, n = q4.shape
+    dev = x.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = plan(x.dtype, m, kh, n, _sms[dev])
+    bt, ct, cluster, slice_ = (p[1], 0, 0, 0) if p[0] == "wgmma" else (0, *p[1:])
+    out = ((*x.shape[:-1], n), (_X_DTYPES[x.dtype], m, kh, n, bt, ct, cluster, slice_, dev.index))
+    _plans[key] = out
+    return out
+
+
 def int4_matmul(x, q4, s):
     """``x (..., K) @ dequant(q4, s)`` -> ``(..., N)`` in x's dtype.
 
@@ -126,26 +172,18 @@ def int4_matmul(x, q4, s):
     global launches
     if x.device.type == "cpu":
         return reference_int4_matmul(x, q4, s)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    _check(x2, q4, s)
-    m = x2.shape[0]
-    kh, n = q4.shape
-    fn, workspace = _kernel()
-    work_floats, n_tickets = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    workspace(_X_DTYPES[x.dtype], m, kh, n, ctypes.byref(work_floats), ctypes.byref(n_tickets))
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        work = tickets = None
-        if work_floats.value:
-            work = torch.empty(work_floats.value, dtype=torch.float32, device=x.device)
-            tickets = _ticket_buffer(x.device, stream, n_tickets.value)
-        rc = fn(x2.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
-                work.data_ptr() if work is not None else None,
-                tickets.data_ptr() if tickets is not None else None,
-                _X_DTYPES[x.dtype], m, kh, n, stream)
+    key = (x.shape, x.stride(), x.dtype, x.device, q4.shape, q4.stride(), q4.dtype, q4.device,
+           s.shape, s.stride(), s.dtype, s.device)
+    p = _plans.get(key)
+    if p is None:
+        p = _plan(key, x, q4, s)
+    out_shape, args = p
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(args[-1])
+    rc = _kernel()(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(), *args, stream)
     if rc != 0:
+        _check(x.reshape(-1, x.shape[-1]), q4, s)  # names a per-call fault (alignment) if any
         raise RuntimeError(f"int4 matmul kernel launch failed: cudaError_t {rc}")
     launches += 1
-    return out.reshape(*lead, n)
+    return out

@@ -8,9 +8,12 @@ int8 ``q (K,N)`` with an exact int32 accumulation, then
 ``(float(acc) * sx) * ws`` in f32 and one rounding to the output dtype.
 The per-row activation quantize stays outside (``models.quantization``), as
 in JAX. At the 1.7B prefill shapes (M = 640) it is bound by its int8
-operations (8.1 us for (2048,6144) at 1979 TOP/s). Design: 64x64 tiles of
-``mma.sync`` m16n8k32 s8 tensor-core products, B transposed into shared
-memory in registers, rescale and cast fused into the epilogue. The integer
+operations (8.1 us for (2048,6144) at 1979 TOP/s). Design: a TMA-fed s8
+``wgmma`` mainloop with A and B swapped (the N-major weight is the register
+A operand, gathered four k-consecutive bytes a register; xq the K-major
+shared-memory B operand), rescale and cast fused into the epilogue
+(:func:`plan` picks the token tile); N that TMA cannot take (N % 16 != 0)
+runs 64x64 tiles of ``mma.sync`` m16n8k32 in the same library. The integer
 sum is exact and the two f32 multiplies come in the plain version's order,
 so kernel and plain version agree bit for bit. Unlike the Pallas kernel's
 ``shapes_ok``, any M is taken; K must be a multiple of 16 and N of 4.
@@ -22,6 +25,7 @@ launch the kernel or raise. ``launches`` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
@@ -45,7 +49,20 @@ def reference_w8a8_matmul(xq, sx, q, ws, out_dtype):
     return ((acc.float() * sx) * ws).to(out_dtype)
 
 
+_MM_COLS = 128  # output columns of a wgmma block
+
+
+def plan(m: int, k: int, n: int, sms: int) -> int:
+    """Tokens a block of the wgmma path: 128 where 128-token tiles already
+    fill the SMs, else 64; 0 (the mma.sync path) where N % 16 != 0."""
+    if n % 16:
+        return 0
+    return 128 if -(-n // _MM_COLS) * -(-m // 128) >= sms else 64
+
+
 _fn = None
+_sms: Dict[torch.device, int] = {}
+_plans: Dict[tuple, tuple] = {}
 
 
 def _kernel():
@@ -53,7 +70,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("w8a8_matmul").rho_w8a8_matmul
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         _fn = fn
     return _fn
 
@@ -85,6 +102,19 @@ def _check(xq, sx, q, ws, out_dtype):
             raise ValueError(f"w8a8_matmul: {name} must be 16-byte aligned")
 
 
+def _plan(key, xq, sx, q, ws, out_dtype):
+    """Checks and launch arguments of one call signature, computed once."""
+    _check(xq, sx, q, ws, out_dtype)
+    m, k = xq.shape
+    n = q.shape[1]
+    dev = xq.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = ((m, n), (_OUT_DTYPES[out_dtype], m, k, n, plan(m, k, n, _sms[dev]), dev.index))
+    _plans[key] = out
+    return out
+
+
 def w8a8_matmul(xq, sx, q, ws, out_dtype):
     """``(xq @ q) * sx * ws`` -> ``(M,N)`` in ``out_dtype``.
 
@@ -94,16 +124,20 @@ def w8a8_matmul(xq, sx, q, ws, out_dtype):
     global launches
     if xq.device.type == "cpu":
         return reference_w8a8_matmul(xq, sx, q, ws, out_dtype)
-    _check(xq, sx, q, ws, out_dtype)
-    m, k = xq.shape
-    n = q.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    fn = _kernel()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        rc = fn(xq.data_ptr(), sx.data_ptr(), q.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                _OUT_DTYPES[out_dtype], m, k, n, stream)
+    key = (xq.shape, xq.stride(), xq.dtype, xq.device, sx.shape, sx.stride(), sx.dtype,
+           sx.device, q.shape, q.stride(), q.dtype, q.device, ws.shape, ws.stride(), ws.dtype,
+           ws.device, out_dtype)
+    p = _plans.get(key)
+    if p is None:
+        p = _plan(key, xq, sx, q, ws, out_dtype)
+    out_shape, args = p
+    out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
+    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(args[-1])
+    rc = _kernel()(xq.data_ptr(), sx.data_ptr(), q.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                   *args, stream)
     if rc != 0:
+        _check(xq, sx, q, ws, out_dtype)  # names a per-call fault (alignment) if there is one
         raise RuntimeError(f"w8a8 matmul kernel launch failed: cudaError_t {rc}")
     launches += 1
     return out
