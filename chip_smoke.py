@@ -25,7 +25,16 @@ Phases, each fatal on failure:
    served by ``QwenTTSModel.from_pretrained(dir)``, the same batch and
    frames; the codes must equal those of the model that was saved;
 6. w8a8 prefill: 1.7B int8 with ``RHO_TTS_TPU_W8A8_PREFILL=1`` for this
-   phase only, one decode chunk.
+   phase only, one decode chunk;
+7. generate(): the user-facing path, ``TTSFactory.get_tts_instance("qwen",
+   ...)`` -> ``BaseTTS.generate`` -> ``QwenTTS`` -> fused DSP finalize ->
+   WAV files, at PyTorch's default TF32 settings: the 5 texts once to warm
+   up and once timed (launch counts, WAV readback, bit-equality with a
+   direct ``synthesize`` + ``finalize_segments``, one host fetch for the
+   batch's finalize, none inside it, DSP card vs CPU), then speed/pitch,
+   ``stream()`` and a voice clone from a 20 s reference (see
+   :func:`run_generate_path`). Each kernel's entry gains
+   ``launches_generate``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -760,6 +769,305 @@ def run_w8a8_prefill(qmodel, kmods, int8_prefill_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the generate() path
+# ---------------------------------------------------------------------------
+
+FINALIZE_TOL = 3e-5  # the DSP parity tolerance (tests/test_torch_port_dsp.py)
+PITCH_TOL = 1e-4  # the pitch-shift parity tolerance (same file)
+# The random-weight codec speaks at about -54 dBFS: the default -50 dB trim
+# would cut every item to its first 10 ms window, so the phase trims at -70.
+SILENCE_DB = -70.0
+
+
+def _timed_method(obj, name, events, sync=False):
+    """Wrap ``obj.name`` (an instance attribute) to record CUDA events around
+    each call, and the host seconds when ``sync`` (synchronising at its end)."""
+    inner = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        if sync:
+            torch.cuda.synchronize()
+        events.append((start, end, time.perf_counter() - t0))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _event_ms(events) -> float:
+    return sum(s.elapsed_time(e) for s, e, _ in events)
+
+
+def _host_s(events) -> float:
+    return sum(h for _, _, h in events)
+
+
+def _dsp_card_vs_cpu(dsp, pitch_fn, waves, sr, silence_db: float) -> dict:
+    """The fused finalize (one and three segments, with loudness) on the card
+    against the same call on the CPU copies, and ``_apply_speed_pitch``; the
+    device part of the finalize must not synchronise with the host."""
+    out = {}
+    for what, segs in (("one segment", waves[:1]), ("three segments", waves[:3])):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any host wait raises here
+        caught = False
+        try:
+            buf, meta = dsp.finalize_segments(segs, sr, loudness=True, defer_fetch=True,
+                                              silence_threshold_db=silence_db)
+            try:  # the mode's positive control: a fetch must raise
+                meta.sum().item()
+            except RuntimeError:
+                caught = True
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not caught:
+            raise AssertionError("sync debug mode did not catch a host fetch")
+        length, ratio = meta.cpu().tolist()
+        card = buf[: int(length)]
+        cpu, cpu_ratio = dsp.finalize_segments([w.cpu() for w in segs], sr, loudness=True,
+                                               silence_threshold_db=silence_db)
+        err = (card.cpu() - cpu).abs().max().item() if card.shape == cpu.shape else float("inf")
+        out[what] = {"samples": int(length), "max_abs_err": err, "tol": FINALIZE_TOL,
+                     "decay_ratio_err": abs(ratio - cpu_ratio), "host_syncs_before_fetch": 0}
+        if not err <= FINALIZE_TOL or not abs(ratio - cpu_ratio) <= 1e-4:
+            raise AssertionError(f"finalize {what}: card vs CPU {out[what]}")
+    sp_card = pitch_fn(waves[0])
+    sp_cpu = pitch_fn(waves[0].cpu())
+    err = (sp_card.cpu() - sp_cpu).abs().max().item() if sp_card.shape == sp_cpu.shape \
+        else float("inf")
+    out["speed 1.5 + pitch 2"] = {"samples": sp_card.shape[0], "max_abs_err": err,
+                                  "tol": PITCH_TOL}
+    if not err <= PITCH_TOL:
+        raise AssertionError(f"speed/pitch card vs CPU {out['speed 1.5 + pitch 2']}")
+    return out
+
+
+def run_generate_path(qmodel, kmods, build_dir: str, smi: str) -> dict:
+    """Phase 7: ``TTSFactory`` -> ``QwenTTS`` -> engine -> fused DSP -> WAV.
+
+    a. CustomVoice 1.7B int8, ``generate(TEXTS, output_path)`` once to warm
+       up and once timed (EOS masked, so every row decodes every frame);
+    b. checks: results, WAV readback, exact launch counts, bit-equality
+       with a direct ``synthesize`` + ``finalize_segments`` from the same
+       key, one host fetch for the batch's finalize, DSP card vs CPU;
+    c. voice clone from a 20 s WAV (at 16 kHz, so the reference is
+       resampled on the card and capped at 10 s);
+    d. ``speed=1.5, pitch_semitones=2.0``;
+    e. ``stream()``: the first chunk's latency, the full length, and the
+       codes of a one-shot decode of the text from the same key.
+    """
+    import numpy as np
+
+    from rho_tts_tpu_torch import TTSFactory, audio_io
+    from rho_tts_tpu_torch.models.qwen.model import _derive_row_seeds
+    from rho_tts_tpu_torch.ops import dsp
+    from rho_tts_tpu_torch.ops.resample import resample
+
+    # The port as it runs by default: PyTorch's TF32 defaults (matmul off,
+    # cuDNN on; the resample is a matmul, the codec runs bf16).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = os.path.join(build_dir, "phase7")
+    os.makedirs(out_dir, exist_ok=True)
+    min_audio_sec = 1000.0  # EOS masked in every frame: exact launch counts
+    t0 = time.perf_counter()
+    tts = TTSFactory.get_tts_instance(
+        "qwen", speaker="Vivian", model_path="Qwen3-TTS-12Hz-1.7B-CustomVoice",
+        quantization="int8", device="cuda", min_audio_sec=min_audio_sec)
+    tts.silence_threshold_db = SILENCE_DB
+    model = tts._load_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.config
+    sr, hop, chunk = model.sample_rate, cfg.codec.hop, qmodel._chunk()
+    base = os.path.join(out_dir, "out")
+
+    t0 = time.perf_counter()
+    tts.generate(TEXTS, output_path=base)  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # -- a. the timed call ------------------------------------------------
+    for mod in kmods.values():
+        mod.launches = 0
+    fetches0 = dsp.fetches
+    synth_ev, final_ev, save_ev = [], [], []
+    _timed_method(model, "synthesize", synth_ev, sync=True)
+    _timed_method(tts, "_finalize_items", final_ev)
+    _timed_method(tts, "_save_wav", save_ev)
+    with StageClock(qmodel) as clock:
+        t0 = time.perf_counter()
+        results = tts.generate(TEXTS, output_path=base)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    del model.synthesize, tts._finalize_items, tts._save_wav
+    launches = {name: mod.launches for name, mod in kmods.items()}
+    finalize_fetches = dsp.fetches - fetches0
+    steps = len(clock.events["decode_chunk"]) * chunk
+    layers = cfg.talker.layers
+
+    # -- b. checks --------------------------------------------------------
+    want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
+            "w8a8_matmul": 0, "int4_matmul": 0}
+    if launches != want:
+        raise AssertionError(f"generate(): launches {launches}, expected {want} ({steps} steps)")
+    if finalize_fetches != 1:
+        raise AssertionError(f"generate(): {finalize_fetches} DSP host fetches, expected 1")
+    if not isinstance(results, list) or len(results) != len(TEXTS) or None in results:
+        raise AssertionError(f"generate(): results {results!r}")
+    for i, r in enumerate(results):
+        a = r.audio
+        if a.device.type != "cuda" or a.dtype != torch.float32 or a.ndim != 1 \
+                or not bool(torch.isfinite(a).all()) or r.duration_sec != a.shape[0] / sr \
+                or not 0.9 * (steps + 1) * hop <= a.shape[0] <= (steps + 1) * hop:
+            raise AssertionError(f"result {i}: {tuple(a.shape)} {a.dtype} {r.duration_sec}")
+        wav, wav_sr = audio_io.load_wav(r.path)
+        want_wav = audio_io._to_int16(r.numpy()).astype(np.float32) / 32768.0
+        if wav_sr != sr or not np.array_equal(wav, want_wav):
+            raise AssertionError(f"result {i}: WAV readback differs from result.audio")
+    tts._set_seeds()
+    key = tts.next_rng()  # the key the timed call's one model call drew
+    waves, _ = model.synthesize(TEXTS, speaker="Vivian", language="English",
+                                min_frames=int(min_audio_sec * cfg.codec.frame_rate),
+                                seeds=_derive_row_seeds(key, len(TEXTS)))
+    for i, (r, w) in enumerate(zip(results, waves)):
+        direct, _ = dsp.finalize_segments([w], sr, loudness=True, silence_threshold_db=SILENCE_DB)
+        if not torch.equal(r.audio, direct):
+            raise AssertionError(f"result {i} differs from synthesize + finalize_segments")
+    dsp_checks = _dsp_card_vs_cpu(dsp, lambda a: tts._apply_speed_pitch(a, 1.5, 2.0), waves, sr,
+                                  SILENCE_DB)
+    audio_s = sum(r.duration_sec for r in results)
+    synth_s = _host_s(synth_ev)
+    gen = {
+        "card": smi, "preset": cfg.name, "quantization": model.quantization,
+        "batch": len(TEXTS), "decode_steps": steps, "init_s": init_s, "warmup_s": warm_s,
+        "generate_wall_s": wall_s, "audio_s": audio_s, "rtf": audio_s / wall_s,
+        "prefill_ms": clock.ms("prefill"), "decode_ms": clock.ms("decode_chunk"),
+        "vocode_ms": clock.ms("vocode"), "finalize_ms": _event_ms(final_ev),
+        "synthesize_wall_s": synth_s, "engine_overhead_s": wall_s - synth_s,
+        "wav_save_ms": _host_s(save_ev) * 1e3, "finalize_host_fetches": finalize_fetches,
+        "launches": launches, "bit_equal_to_synthesize_finalize": True,
+        "wav_readback_equal": True, "dsp_card_vs_cpu": dsp_checks,
+    }
+
+    # -- d. speed and pitch -----------------------------------------------
+    # The longest text decodes as many frames alone as in the batch.
+    i = max(range(len(TEXTS)), key=lambda j: len(TEXTS[j]))
+    t0 = time.perf_counter()
+    sp = tts.generate(TEXTS[i], speed=1.5, pitch_semitones=2.0)
+    torch.cuda.synchronize()
+    ratio = sp.audio.shape[0] / results[i].audio.shape[0]
+    if not bool(torch.isfinite(sp.audio).all()) or abs(ratio - 1 / 1.5) > 0.01:
+        raise AssertionError(f"speed 1.5: length ratio {ratio}")
+    gen["speed_pitch"] = {"wall_s": time.perf_counter() - t0, "samples": sp.audio.shape[0],
+                          "plain_samples": results[i].audio.shape[0], "length_ratio": ratio}
+
+    # -- e. stream ----------------------------------------------------------
+    raw = []
+    inner_chunks = tts._stream_audio_chunks
+
+    def counting_chunks(*args, **kwargs):
+        for piece in inner_chunks(*args, **kwargs):
+            raw.append(piece.shape[0])
+            yield piece
+
+    streamed_codes = []
+    inner_decode = qmodel._decode_chunk
+
+    def capturing_decode(*args, **kwargs):
+        out = inner_decode(*args, **kwargs)
+        streamed_codes.append(out[0])
+        return out
+
+    tts._stream_audio_chunks = counting_chunks
+    qmodel._decode_chunk = capturing_decode
+    for mod in kmods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    pieces, first_s = [], None
+    try:
+        for piece in tts.stream(TEXTS[0]):
+            if first_s is None:
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            pieces.append(piece.audio)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+    finally:
+        qmodel._decode_chunk = inner_decode
+    del tts._stream_audio_chunks
+    stream_launches = {k: m.launches for k, m in kmods.items()}
+    # stream() decodes the codes a one-shot decode of the text draws from the
+    # same key (its cache has the same length, so the kernel splits alike).
+    tts._set_seeds()
+    with torch.inference_mode():
+        codes, _, _ = model._generate_codes_arrays(
+            [TEXTS[0]], speaker="Vivian", language="English",
+            min_frames=int(min_audio_sec * cfg.codec.frame_rate),
+            seeds=_derive_row_seeds(tts.next_rng(), 1))
+    streamed = torch.cat(streamed_codes, dim=1)
+    if not torch.equal(streamed, codes[:, 1:1 + streamed.shape[1]]):
+        raise AssertionError("stream(): codes differ from a one-shot decode from the same key")
+    total = sum(p.shape[0] for p in pieces)
+    frames = sum(raw) // hop
+    if len(pieces) < 2 or not all(bool(torch.isfinite(p).all()) for p in pieces) \
+            or frames % chunk != 1 or not 0.99 * sum(raw) <= total <= sum(raw):
+        raise AssertionError(f"stream: {len(pieces)} pieces, {total} of {sum(raw)} samples")
+    gen["stream"] = {"first_chunk_s": first_s, "wall_s": stream_s, "pieces": len(pieces),
+                     "samples": total, "decoded_samples": sum(raw), "frames": frames,
+                     "codes_equal_to_one_shot": True, "launches": stream_launches}
+    gen["peak_mem_gb_customvoice"] = torch.cuda.max_memory_allocated() / 1e9
+    tts.close()
+    del tts, model, waves, results, sp, pieces
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- c. voice clone -----------------------------------------------------
+    ref_path = os.path.join(out_dir, "reference_16k.wav")
+    ref = torch.from_numpy(audio_io.load_wav(base + "_0.wav")[0]).cuda()
+    ref = ref.repeat(int(np.ceil(20 * sr / ref.shape[0])))[: 20 * sr]
+    audio_io.save_wav(ref_path, resample(ref, sr, 16000), 16000)  # 20 s at 16 kHz
+    clone = TTSFactory.get_tts_instance(
+        "qwen", model_path="Qwen3-TTS-12Hz-1.7B-Base", reference_audio=ref_path,
+        reference_text=TEXTS[0], quantization="int8", device="cuda",
+        min_audio_sec=min_audio_sec)
+    clone.silence_threshold_db = SILENCE_DB
+    cmodel = clone._load_model()
+    for mod in kmods.values():
+        mod.launches = 0
+    with StageClock(qmodel) as cclock:
+        t0 = time.perf_counter()
+        res = clone.generate(TEXTS[1])
+        torch.cuda.synchronize()
+        clone_s = time.perf_counter() - t0
+    claunches = {name: mod.launches for name, mod in kmods.items()}
+    csteps = len(cclock.events["decode_chunk"]) * chunk
+    ref_codes = cmodel._reference_codes(ref_path)
+    arrays, lens, bucket = cmodel._build_prompt_arrays([TEXTS[1]], None, "English", ref_path,
+                                                      TEXTS[0])
+    want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * csteps,
+            "w8a8_matmul": 0, "int4_matmul": 0}
+    if res is None or not bool(torch.isfinite(res.audio).all()) or claunches != want \
+            or ref_codes.shape != (10 * sr // hop, cfg.codec.n_codebooks) \
+            or int(arrays["code_mask"].sum()) != ref_codes.shape[0]:
+        raise AssertionError(f"voice clone: {claunches} vs {want}, ref codes {ref_codes.shape}")
+    gen["voice_clone"] = {"wall_s": clone_s, "samples": res.audio.shape[0],
+                          "reference_frames": ref_codes.shape[0], "prompt_len": lens[0],
+                          "prompt_bucket": bucket, "decode_steps": csteps,
+                          "prefill_ms": cclock.ms("prefill"), "launches": claunches}
+    gen["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    clone.close()
+    return gen
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     parser.add_argument("--parent", default=None,
@@ -834,6 +1142,8 @@ def main(argv=None) -> int:
     log(f"phase 5 int4 path: {json.dumps(int4_path)}")
     w8a8_path = run_w8a8_prefill(qmodel, kmods, main_path["prefill_ms"])
     log(f"phase 6 w8a8 prefill: {json.dumps(w8a8_path)}")
+    gen_path = run_generate_path(qmodel, kmods, os.path.join(os.path.dirname(src), "build"), smi)
+    log(f"phase 7 generate(): {json.dumps(gen_path)}")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -842,6 +1152,7 @@ def main(argv=None) -> int:
         path_name, path = paths[k["name"]]
         k["launches"] = path["launches"][k["name"]]
         k["launches_path"] = f"1.7B {path_name}, {path['decode_steps']} decode steps"
+        k["launches_generate"] = gen_path["launches"][k["name"]]
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

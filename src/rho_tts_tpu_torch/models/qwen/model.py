@@ -14,7 +14,9 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
   predictor. The host checks cancellation and the lagged all-done flag
   between chunks only.
 * The codec vocoder turns the codes into a 24 kHz waveform per length
-  bucket.
+  bucket; :meth:`QwenTTSModel.stream_chunks` vocodes a sliding window per
+  decode chunk instead, and voice cloning encodes the reference audio with
+  the codec's encoder (:meth:`QwenTTSModel._reference_codes`).
 * :meth:`QwenTTSModel.from_pretrained` serves a native checkpoint as
   exported (:meth:`QwenTTSModel.save_checkpoint`, ``models.checkpoint``),
   converts an HF safetensors directory (``models.qwen.weights``), or
@@ -22,7 +24,17 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
 
 Sampling reproduces the JAX package's bits: row i's noise at frame f comes
 from ``fold_in(fold_in(PRNGKey(0x5EED), seeds[i]), f)`` through the port's
-threefry (``utils.prng``), so the same seeds draw the same tokens.
+threefry (``utils.prng``), so the same seeds draw the same tokens;
+:func:`_derive_row_seeds` turns a caller's threefry key into those seeds
+as the JAX package does.
+
+The JAX decode attends to a static window of the cache that grows per
+chunk (``_kv_window``), a shortcut for its compiler; the port's decode
+kernel skips masked slots exactly, so the port decodes over the whole cache.
+On the CUDA kernel the split of the keys follows the cache length, so a
+near-tie could round to another code than a windowed decode would; the
+streamed and the one-shot decode of a text share the cache length and
+decode the same codes.
 """
 
 from __future__ import annotations
@@ -173,6 +185,13 @@ def _sample_token_seeded(logits, seeds, frames, temperature, top_k: int):
     return _sample_with_noise(logits, temperature, top_k, _gumbel_noise(seeds, frames, top_k))
 
 
+def _derive_row_seeds(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-row sampling seeds from a caller's threefry key ``(2,)``, one draw
+    per row: ``jax.random.randint(key, (n,), 0, int32 max)`` bit for bit, on
+    the key's device."""
+    return prng.randint(key, (int(n),), 0, int(np.iinfo(np.int32).max))
+
+
 def _predict_residuals(params, cfg, h_last, tok0):
     """Predict residual codebooks from hidden state + primary-code embed."""
     n_res = cfg.codec.n_codebooks - 1
@@ -316,6 +335,7 @@ class QwenTTSModel(nn.Module):
         #: the registered parameters as a plain nested dict, for the stage functions
         self.params = {key: _register(self, key, value) for key, value in params.items()}
         self.sample_rate = config.codec.sample_rate
+        self._ref_codes_cache: Dict[str, np.ndarray] = {}
 
     # -- Loading --------------------------------------------------------------
 
@@ -380,6 +400,36 @@ class QwenTTSModel(nn.Module):
             quantization=self.quantization, extra={"variant": variant},
         )
 
+    # -- Reference audio conditioning --------------------------------------
+
+    @torch.inference_mode()
+    def _reference_codes(self, ref_audio_path: str) -> np.ndarray:
+        """Codec-encode reference audio to conditioning tokens (cached per path).
+
+        The WAV is resampled to the codec's rate on the model's device,
+        capped at 10 s, cut to a whole number of hops (at least one), and
+        encoded by the codec's encoder; the codes ``(T, nq)`` come back to
+        the host, where the prompt arrays are built.
+        """
+        if ref_audio_path in self._ref_codes_cache:
+            return self._ref_codes_cache[ref_audio_path]
+        from ...audio_io import load_wav
+        from ...ops.resample import resample
+
+        wav, sr = load_wav(ref_audio_path)
+        wav = torch.from_numpy(wav).to(self.device)
+        if sr != self.sample_rate:
+            wav = resample(wav, sr, self.sample_rate)
+        # Cap the reference at 10 s and align to the codec hop
+        hop = self.config.codec.hop
+        wav = wav[: 10 * self.sample_rate]
+        n = max((wav.shape[0] // hop) * hop, hop)
+        wav = F.pad(wav[:n], (0, max(0, n - wav.shape[0])))
+        codes = codec_lib.encode_to_codes(self.params["codec"], self.config.codec, wav[None])
+        codes_np = codes[0].cpu().numpy().astype(np.int32)
+        self._ref_codes_cache[ref_audio_path] = codes_np
+        return codes_np
+
     # -- Prompt building ----------------------------------------------------
 
     def _build_prompt_arrays(self, texts: Sequence[str], speaker: Optional[str], language: str,
@@ -389,13 +439,14 @@ class QwenTTSModel(nn.Module):
         Layout per row: [spk?][ref text][text][ref codes][BOS], left-padded
         to the prompt bucket. Returns (arrays dict of np arrays, lens list, p).
         """
-        if ref_audio is not None:
-            raise NotImplementedError(
-                "ref_audio conditioning needs audio_io/resample, not ported yet"
-            )
         cfg = self.config
         nq = cfg.codec.n_codebooks
+        ref_codes = None
         ref_ids: List[int] = []
+        if ref_audio is not None:
+            ref_codes = self._reference_codes(ref_audio)
+            ref_ids = self.tokenizer.encode(ref_text or "")
+        nr = int(ref_codes.shape[0]) if ref_codes is not None else 0
         has_spk = speaker is not None
         spk_id = 0
         if has_spk:
@@ -409,7 +460,7 @@ class QwenTTSModel(nn.Module):
         rows_ids = [
             self.tokenizer.encode(f"{language}: {t}" if language else t) for t in texts
         ]
-        lens = [int(has_spk) + len(ref_ids) + len(ids) + 1 for ids in rows_ids]
+        lens = [int(has_spk) + len(ref_ids) + len(ids) + nr + 1 for ids in rows_ids]
         p = _round_up(max(lens), PROMPT_BUCKET)
         b = len(texts)
 
@@ -426,6 +477,10 @@ class QwenTTSModel(nn.Module):
             toks = list(ref_ids) + list(ids)
             ids_slotted[i, pos : pos + len(toks)] = toks
             text_mask[i, pos : pos + len(toks)] = 1.0
+            pos += len(toks)
+            if nr:
+                codes_slotted[i, pos : pos + nr] = ref_codes
+                code_mask[i, pos : pos + nr] = 1.0
             # BOS occupies slot p-1: attn_mask minus the other masks.
 
         arrays = {
@@ -455,7 +510,8 @@ class QwenTTSModel(nn.Module):
         """Prefill + chunked AR decode; returns per-text ``(T, nq)`` int32 code arrays.
 
         ``min_frames`` masks EOS for the first N frames. ``seeds`` (one int
-        per text) makes sampling schedule-reproducible and equal to the JAX
+        per text, or an integer tensor such as :func:`_derive_row_seeds`
+        gives) makes sampling schedule-reproducible and equal to the JAX
         package's for the same seeds; without them the seeds are drawn from
         ``rng`` (a CPU ``torch.Generator``, seed 0 by default).
         """
@@ -522,8 +578,9 @@ class QwenTTSModel(nn.Module):
         else:
             if len(seeds) != n_real:
                 raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
-            seeds_b = torch.as_tensor(np.asarray(seeds, np.int64))
-        seeds_b = seeds_b.to(dev)
+            seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
+                torch.as_tensor(np.asarray(seeds, np.int64))
+        seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
         if min_frames > 0:
             logits[:, cfg.audio_eos] = -1e30
         tok0 = _sample_token_seeded(
@@ -609,3 +666,125 @@ class QwenTTSModel(nn.Module):
             for row, i in enumerate(idxs):
                 waves[i] = wav[row, : ends[i] * hop]
         return waves, self.sample_rate
+
+    # -- Single-stream streaming --------------------------------------------
+
+    def _single_prefill(self, text, speaker, language, ref_audio, ref_text, decode_slots: int):
+        """B=1 prompt build + prefill with ``decode_slots`` free cache slots.
+
+        Returns dict(logits (1, V), ck, cv, kv, p, len0).
+        """
+        cfg = self.config
+        arrays, lens, p = self._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
+        s = p + int(decode_slots)
+        cache_k, cache_v = tfm.make_kv_cache(cfg.talker, 1, s, device=self.device)
+        key_valid = torch.zeros((1, s), dtype=torch.bool, device=self.device)
+        a = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+        logits, ck, cv, kv = _prefill(
+            self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
+            a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
+            cache_k, cache_v, key_valid,
+        )
+        return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0])}
+
+    @torch.inference_mode()
+    def stream_chunks(self, text: str, speaker: Optional[str] = None, language: str = "English",
+                      ref_audio: Optional[str] = None, ref_text: Optional[str] = None,
+                      max_frames: Optional[int] = None, min_frames: int = 0,
+                      temperature: Optional[float] = None, top_k: Optional[int] = None,
+                      rng: Optional[torch.Generator] = None, cancel_check=None,
+                      context_frames: int = 32, seed: Optional[int] = None):
+        """Incremental synthesis: yields waveform pieces per decode chunk.
+
+        Audio appears after the first decode chunk instead of after the
+        whole utterance. The codec vocoder is local (convolutions and
+        pointwise nonlinearities), so vocoding a sliding window with
+        ``context_frames`` of left/right context reproduces the
+        full-utterance vocode for every emitted sample (window-boundary
+        samples within the convolutions' rounding). Each chunk's codes come
+        to the host (the one fetch a chunk costs), which decides what to
+        emit. ``seed`` is the row's sampling seed (``_derive_row_seeds``);
+        without it one is drawn from ``rng``.
+
+        Yields (waveform_piece (S,) on the device, sample_rate). Single
+        stream (B=1).
+        """
+        cfg = self.config
+        dev = self.device
+        temperature = cfg.temperature if temperature is None else temperature
+        top_k = cfg.top_k if top_k is None else top_k
+        if seed is None:
+            if rng is None:
+                rng = torch.Generator().manual_seed(0)
+            seed = int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=rng))
+
+        if max_frames is None:
+            max_frames = int(np.clip(len(text) * 1.0 + 50, _chunk(), 1500))
+        n_chunks = _round_up(max_frames, _chunk()) // _chunk()
+        pre = self._single_prefill(text, speaker, language, ref_audio, ref_text,
+                                   n_chunks * _chunk())
+        p = pre["p"]
+        cache_k, cache_v, key_valid = pre["ck"], pre["cv"], pre["kv"]
+        logits = pre["logits"]
+        seeds_b = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
+        if min_frames > 0:
+            logits[:, cfg.audio_eos] = -1e30
+        tok0 = _sample_token_seeded(logits, seeds_b, torch.zeros((1,), dtype=torch.int64,
+                                                                  device=dev), temperature, top_k)
+        first_codes = torch.cat(
+            [tok0[:, None], torch.zeros((1, cfg.codec.n_codebooks - 1), dtype=torch.int64,
+                                        device=dev)], dim=-1,
+        )
+        done = tok0 == cfg.audio_eos
+        rope_base = torch.full((1,), pre["len0"], dtype=torch.int64, device=dev)
+
+        hop = cfg.codec.hop
+        codes_np = first_codes.cpu().numpy()  # (1, nq), grows per chunk
+        finished = bool(codes_np[0, 0] == cfg.audio_eos)
+        emitted = 0  # frames already yielded
+        last_codes = first_codes
+        slot0 = p
+
+        def vocode_span(lo: int, hi: int, emit_from: int, emit_to: int):
+            """Vocode codes[lo:hi]; return samples for frames [emit_from, emit_to)."""
+            window = codes_np[lo:hi]
+            t = _round_up(window.shape[0], _chunk())
+            batch = np.pad(window, ((0, t - window.shape[0]), (0, 0)))[None]
+            with profiling.stage("qwen/vocode"):
+                wav = _vocode(self.params, cfg, torch.from_numpy(batch).to(dev))
+            return wav[0, (emit_from - lo) * hop: (emit_to - lo) * hop]
+
+        for _ in range(n_chunks):
+            if finished:
+                break
+            if cancel_check is not None:
+                cancel_check()
+            with profiling.stage("qwen/decode_chunk"):
+                (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
+                 done) = _decode_chunk(
+                    self.params, cfg, cache_k, cache_v, key_valid, slot0,
+                    rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
+                    slot0 - p + 1, min_frames, _chunk(), top_k,
+                )
+            slot0 += _chunk()
+            cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()
+            hit = np.nonzero(dd)[0]
+            if hit.size:
+                cc = cc[: int(hit[0]) + 1]
+                finished = True
+            codes_np = np.concatenate([codes_np, cc])
+            if finished and codes_np.shape[0] > 1 and codes_np[-1, 0] >= cfg.codec.codebook_size:
+                codes_np = codes_np[:-1]  # drop the EOS frame itself
+            total = codes_np.shape[0]
+
+            safe = total if finished else max(total - context_frames, 0)
+            if safe > emitted:
+                lo = max(emitted - context_frames, 0)
+                piece = vocode_span(lo, total, emitted, safe)
+                emitted = safe
+                yield piece, self.sample_rate
+
+        if emitted < codes_np.shape[0]:  # final flush (max_frames reached)
+            total = codes_np.shape[0]
+            lo = max(emitted - context_frames, 0)
+            yield vocode_span(lo, total, emitted, total), self.sample_rate

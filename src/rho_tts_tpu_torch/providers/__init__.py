@@ -1,0 +1,1 @@
+"""TTS providers of the port (``qwen``)."""

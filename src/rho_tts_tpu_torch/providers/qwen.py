@@ -1,0 +1,291 @@
+"""Qwen3-TTS-class provider: the default backend, on the PyTorch port.
+
+Counterpart of ``rho_tts_tpu/providers/qwen.py``. Wraps
+:class:`rho_tts_tpu_torch.models.qwen.QwenTTSModel` behind the
+:class:`~rho_tts_tpu_torch.engine.BaseTTS` engine: voice cloning with
+Base-model paths (reference audio + transcript) and named speakers with
+CustomVoice-model paths, batch generation, the 3-pass loudness
+post-processing on the device, and chunked streaming.
+
+Sampling draws the JAX package's bits: each model call takes a fresh key
+from the engine's threefry chain (:meth:`BaseTTS.next_rng`) and turns it
+into per-row seeds with ``_derive_row_seeds``, so the same seed gives the
+same codes in both packages.
+
+Options whose modules are not ported yet raise ``NotImplementedError`` at
+construction, naming their ROADMAP item: ``serving=True`` and
+``draft_model_path`` (queue 1 item 9), ``parallelism`` (item 12),
+``lora_path`` (item 11).
+
+Capability parity: reference ``src/rho_tts/providers/qwen.py:22-413``
+(constructor surface :48-94, routing :218-266, post-processing :268-378,
+config-driven max-chars refinement :131-139).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional, Union
+
+from ..engine import BaseTTS
+from ..ops import dsp
+from ..provider_info import ProviderInfo, VoiceInfo
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_MODEL = "Qwen/Qwen3-TTS-12Hz-1.7B-Base"
+
+def _unported(option: str, item: str):
+    return NotImplementedError(f"QwenTTS({option}) is not ported yet: ROADMAP queue 1 {item}")
+
+
+class QwenTTS(BaseTTS):
+    """Qwen3-TTS-class implementation with batch processing and validation.
+
+    Args:
+        device: Device to run on ("cuda", "cuda:N" or "cpu").
+        seed: Random seed for consistent voice generation.
+        deterministic: cuDNN deterministic algorithms, no benchmarking.
+        reference_audio: Reference audio path for voice cloning (optional).
+        reference_text: Transcript of the reference audio (required when
+            reference_audio is set).
+        speaker: Named speaker for CustomVoice model paths.
+        language: Synthesis language (default "English").
+        model_path: Native checkpoint dir, HF safetensors dir or model id
+            (size inferred from the name: 0.6B / 1.7B / tiny; a name that
+            is no directory runs with random weights from ``seed``).
+        max_chars_per_segment: Max characters per text segment
+            (default: auto-computed from free device memory).
+        batch_size: Texts per batched model call (default 5).
+        max_iterations: Validation retry iterations (default 10).
+        accent_drift_threshold: Accent-drift gate (default 0.17).
+        text_similarity_threshold: STT match gate (default 0.85).
+        sound_decay_threshold: Min last/first RMS ratio (default 0.3).
+        drift_model_path: Explicit drift-classifier path; validation with
+            it raises until the classifier is ported (queue 1 item 8).
+        phonetic_mapping: Word-to-pronunciation overrides.
+        quantization: "int8" or "int4" talker weights.
+        min_audio_sec: Minimum generated duration (EOS masked below it).
+        parallelism, n_devices: multi-GPU serving (queue 1 item 12).
+        draft_model_path, speculative_gamma, speculative_residual_mode:
+            speculative decoding (queue 1 item 9).
+        lora_path: per-voice LoRA adapter (queue 1 item 11).
+        serving, serving_slots, serving_max_prompt, serving_max_frames:
+            the continuous-batching served path (queue 1 item 9).
+    """
+
+    MAX_MODEL_CHARS = 4000
+    BYTES_PER_CHAR_ESTIMATE = 500_000
+    # One batched device call synthesizes all segments of an item.
+    supports_batch_generation = True
+    # _post_process_audio is exactly the standard loudness chain, so the
+    # finalize may run fused.
+    post_process_is_loudness = True
+
+    def __init__(
+        self,
+        device: str = "cuda",
+        seed: int = 789,
+        deterministic: bool = False,
+        reference_audio: Optional[str] = None,
+        reference_text: Optional[str] = None,
+        speaker: Optional[str] = None,
+        language: str = "English",
+        model_path: str = DEFAULT_MODEL,
+        max_chars_per_segment: Optional[int] = None,
+        batch_size: int = 5,
+        max_iterations: int = 10,
+        accent_drift_threshold: float = 0.17,
+        text_similarity_threshold: float = 0.85,
+        sound_decay_threshold: float = 0.3,
+        drift_model_path: Optional[str] = None,
+        phonetic_mapping: Optional[Dict[str, str]] = None,
+        quantization: Optional[str] = None,
+        min_audio_sec: float = 0.0,
+        parallelism: Optional[str] = None,
+        n_devices: Optional[int] = None,
+        draft_model_path: Optional[str] = None,
+        speculative_gamma: int = 4,
+        speculative_residual_mode: str = "draft",
+        lora_path: Optional[str] = None,
+        serving: bool = False,
+        serving_slots: int = 8,
+        serving_max_prompt: int = 512,
+        serving_max_frames: int = 1024,
+    ):
+        if serving:
+            raise _unported("serving=True", "item 9 (serving.py)")
+        if draft_model_path is not None:
+            raise _unported("draft_model_path=...", "item 9 (models/qwen/speculative.py)")
+        if parallelism is not None:
+            raise _unported(f"parallelism={parallelism!r}", "item 12 (parallel/)")
+        if lora_path is not None:
+            raise _unported("lora_path=...", "item 11 (models/qwen/lora.py)")
+        super().__init__(device, seed, deterministic, phonetic_mapping=phonetic_mapping)
+
+        if reference_audio is not None and reference_text is None:
+            raise ValueError(
+                "reference_text (transcript of reference audio) is required "
+                "when reference_audio is set"
+            )
+
+        self.reference_audio_path = reference_audio
+        self.reference_text = reference_text
+        self.speaker = speaker
+        self.language = language
+        self.voice_cloning = reference_audio is not None
+        self.model_path = model_path
+        self.drift_model_path = drift_model_path
+        self.quantization = quantization
+        self.min_audio_sec = min_audio_sec
+
+        self._max_chars_explicit = max_chars_per_segment is not None
+        self.max_chars_per_segment = (
+            max_chars_per_segment if max_chars_per_segment is not None else 1000
+        )
+        self.batch_size = batch_size
+        self.force_sentence_split = False
+        self.max_iterations = max_iterations
+        self.accent_drift_threshold = accent_drift_threshold
+        self.text_similarity_threshold = text_similarity_threshold
+        self.sound_decay_threshold = sound_decay_threshold
+
+        # Model is lazy-loaded on first generation
+        self._model = None
+
+    # -- Model management ---------------------------------------------------
+
+    def _load_model(self):
+        if self._model is None:
+            from ..models.qwen import QwenTTSModel
+
+            logger.info("Loading Qwen-TTS model '%s'...", self.model_path)
+            self._model = QwenTTSModel.from_pretrained(
+                self.model_path, seed=self.seed, quantization=self.quantization,
+                device=self.device,
+            )
+            # Refine max model chars from the checkpoint's context length
+            mpe = self._model.config.max_position_embeddings
+            if mpe:
+                self._max_model_chars = min(self.MAX_MODEL_CHARS, mpe)
+        return self._model
+
+    def _is_custom_voice(self) -> bool:
+        """CustomVoice vs Base routing.
+
+        Parity: the reference infers it from "CustomVoice" in the model
+        path (``src/rho_tts/providers/qwen.py:218-266``). Native serving
+        checkpoints carry the variant in their manifest instead.
+        """
+        if "CustomVoice" in self.model_path:
+            return True
+        try:
+            from ..models import checkpoint as ckpt_lib
+
+            if ckpt_lib.is_native_checkpoint(self.model_path):
+                return ckpt_lib.load_manifest(self.model_path).get("variant") == "custom-voice"
+        except Exception:  # noqa: BLE001
+            return False
+        return False
+
+    def _route(self):
+        """(model, model kwargs of the voice) for the routed variant.
+
+        CustomVoice paths require a named speaker; Base paths require
+        reference audio (reference parity).
+        """
+        model = self._load_model()
+        if self._is_custom_voice():
+            if not self.speaker:
+                raise ValueError(
+                    "CustomVoice model requires a named speaker. Select a built-in "
+                    "voice (e.g. Vivian, Ryan) or provide reference audio with a "
+                    "Base model for voice cloning."
+                )
+            voice = dict(speaker=self.speaker, ref_audio=None, ref_text=None)
+        else:
+            if not self.voice_cloning:
+                raise ValueError(
+                    "Qwen Base model requires reference audio for voice cloning. "
+                    "Use a CustomVoice model with a named speaker, or provide "
+                    "reference audio."
+                )
+            voice = dict(speaker=None, ref_audio=self.reference_audio_path,
+                         ref_text=self.reference_text)
+        voice.update(language=self.language,
+                     min_frames=int(self.min_audio_sec * model.config.codec.frame_rate))
+        return model, voice
+
+    # -- Generation ----------------------------------------------------------
+
+    def _generate_audio(self, text: Union[str, List[str]], **kwargs):
+        """One batched model call; waveforms stay on the model's device.
+
+        Row seeds come from the engine's key chain as in the JAX package
+        (``_derive_row_seeds(next_rng(), n)``).
+        """
+        from ..models.qwen.model import _derive_row_seeds
+
+        model, voice = self._route()
+        is_single = isinstance(text, str)
+        text_list = [text] if is_single else list(text)
+        seeds = _derive_row_seeds(self.next_rng(), len(text_list))
+        waves, _sr = model.synthesize(text_list, seeds=seeds, **voice)
+        return waves[0] if is_single else waves
+
+    def _post_process_audio(self, audio):
+        """Decay-corrected loudness normalization + soft clip (on the device).
+
+        Parity: reference ``qwen.py:268-378``; implemented as
+        :func:`rho_tts_tpu_torch.ops.dsp.loudness_postprocess`.
+        """
+        return dsp.loudness_postprocess(audio, self.sample_rate)
+
+    def _stream_audio_chunks(self, text: str, cancellation_token=None):
+        """Chunked streaming via the codec-LM's sliding-window vocoder."""
+        from ..models.qwen.model import _derive_row_seeds
+
+        model, voice = self._route()
+        cancel_check = cancellation_token.raise_if_cancelled if cancellation_token else None
+        seed = int(_derive_row_seeds(self.next_rng(), 1)[0])
+        gen = model.stream_chunks(text, seed=seed, cancel_check=cancel_check, **voice)
+        return (wav for wav, _sr in gen)
+
+    def _make_chunk_postprocessor(self):
+        """Causal analogue of the global loudness pass for chunk mode."""
+        return dsp.StreamingLoudness().process
+
+    def export_checkpoint(self, path: str) -> None:
+        """Export the loaded model as a native serving checkpoint.
+
+        Pre-quantized when the provider runs quantized, so a later
+        ``QwenTTS(model_path=path)`` loads the exact serving bytes (see
+        ``models.checkpoint``). Offline conversion:
+        ``python -m rho_tts_tpu_torch.models.qwen.export``.
+        """
+        self._load_model().save_checkpoint(path)
+
+    def close(self) -> None:
+        """Release the model's parameters (device memory)."""
+        super().close()
+        self._model = None
+        self._free_device_memory()
+
+    @classmethod
+    def provider_info(cls) -> ProviderInfo:
+        from ..models.qwen.model import SPEAKERS
+
+        return ProviderInfo(
+            name="qwen",
+            supports_voice_cloning=True,
+            supported_languages=["English", "Chinese", "Japanese", "Korean"],
+            builtin_voices=[VoiceInfo(id=n, name=n, language="English") for n in SPEAKERS],
+        )
+
+    @property
+    def sample_rate(self) -> int:
+        if self._model is not None:
+            return self._model.sample_rate
+        from ..models.qwen.config import resolve_config
+
+        return resolve_config(self.model_path).codec.sample_rate

@@ -7,11 +7,16 @@ tokens as the JAX package for the same seeds. Covered:
 
 * ``PRNGKey(seed)``: the raw threefry key ``[seed >> 32, seed & 0xFFFFFFFF]``;
 * ``fold_in(key, data)``: ``threefry2x32(key, [0, data])``;
+* ``split(key, num)``: key i is ``threefry2x32(key, [i >> 32, i & 0xFFFFFFFF])``
+  (the "fold-like" split of ``jax_threefry_partitionable=True``), so
+  ``split(key, n)[i] == fold_in(key, i)``;
 * ``random_bits(key, shape)`` as generated under
   ``jax_threefry_partitionable=True`` (the default of jax 0.9): element n
   is ``x0 ^ x1`` of ``threefry2x32(key, [n >> 32, n & 0xFFFFFFFF])``;
 * ``uniform(key, shape, minval, maxval)`` for float32 and ``gumbel(key,
-  shape)`` (the default "low" mode: ``-log(-log(uniform(tiny, 1)))``).
+  shape)`` (the default "low" mode: ``-log(-log(uniform(tiny, 1)))``);
+* ``randint(key, shape, minval, maxval)`` for int32: two 32-bit draws from
+  ``split(key)``, reduced modulo the span in uint32 arithmetic.
 
 The words are held in int64 tensors masked to 32 bits (torch's uint32 has
 too few operators), so everything runs on any device as ordinary integer
@@ -63,6 +68,14 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: keys ``(..., num, 2)``."""
+    counts = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    k0, k1 = key[..., 0, None], key[..., 1, None]
+    y0, y1 = threefry2x32(k0, k1, counts >> 32, counts & MASK32)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit words ``(..., *shape)`` (values in int64), partitionable layout."""
     shape = tuple(shape)
@@ -88,3 +101,37 @@ def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.gumbel`` (float32, "low" mode)."""
     u = uniform(key, shape, minval=_TINY_F32, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, jnp.int32)``, bit for bit.
+
+    ``minval`` and ``maxval`` are Python ints (clipped to int32 as JAX
+    clips them). Returns int64 values in ``[minval, maxval)``.
+    """
+    out_of_range = maxval > _INT32_MAX
+    lo = min(max(int(minval), _INT32_MIN), _INT32_MAX)
+    hi = min(max(int(maxval), _INT32_MIN), _INT32_MAX)
+    span = (hi - lo) & MASK32
+    if hi <= lo:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK32
+    k = split(key, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    if span == 0:  # a span of 2**32 wraps to 0: the remainders leave the bits as drawn
+        offset = (higher * 0 + lower) & MASK32
+    else:
+        # uint32 arithmetic: every product and sum wraps at 2**32, the
+        # multiplier's square too (65536**2 wraps to 0, so for spans above
+        # 65536 the multiplier is 0 and only the lower draw counts).
+        multiplier = (1 << 16) % span
+        multiplier = ((multiplier * multiplier) & MASK32) % span
+        offset = (((higher % span) * multiplier) & MASK32) + (lower % span)
+        offset = (offset & MASK32) % span
+    value = (lo + offset) & MASK32
+    return torch.where(value >= (1 << 31), value - (1 << 32), value)

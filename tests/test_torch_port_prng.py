@@ -78,3 +78,47 @@ def test_sample_token_seeded_identical(top_k):
             torch.from_numpy(frames.astype(np.int64)), 0.9, top_k,
         ).numpy()
         np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("num", [2, 3])
+def test_split_identical_and_chained(num):
+    """split(key, num) and the engine's chain (key, sub = split(key)) give
+    jax.random.split's bits; under the partitionable layout key i is
+    fold_in(key, i)."""
+    for seed in SEEDS:
+        key, tkey = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+        for _ in range(4):  # a chain, as BaseTTS.next_rng walks it
+            ref = _key_np(jax.random.split(key, num))
+            ours = prng.split(tkey, num).numpy()
+            np.testing.assert_array_equal(ours, ref)
+            np.testing.assert_array_equal(ours[1], prng.fold_in(tkey, 1).numpy())
+            key, _ = jax.random.split(key)
+            tkey = prng.split(tkey, 2)[0]
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((5,), 0, np.iinfo(np.int32).max),  # _derive_row_seeds' range
+    ((1,), 0, np.iinfo(np.int32).max),
+    ((3, 4), -7, 100),
+    ((7,), 3, 70000),
+    ((6,), -2**31, 2**31 - 1),
+    ((2,), 5, 5),  # empty range: minval, as JAX returns it
+])
+def test_randint_identical(shape, lo, hi):
+    for seed in SEEDS:
+        key = jax.random.PRNGKey(seed)
+        for k, tk in ((key, prng.PRNGKey(seed)),
+                      (jax.random.split(key)[1], prng.split(prng.PRNGKey(seed))[1])):
+            ref = np.asarray(jax.random.randint(k, shape, lo, hi, jnp.int32))
+            np.testing.assert_array_equal(prng.randint(tk, shape, lo, hi).numpy(), ref)
+
+
+def test_derive_row_seeds_identical():
+    for seed in SEEDS:
+        key = jax.random.split(jax.random.PRNGKey(seed))[1]
+        tkey = prng.split(prng.PRNGKey(seed))[1]
+        for n in (1, 2, 5):
+            np.testing.assert_array_equal(
+                tmodel._derive_row_seeds(tkey, n).numpy(),
+                np.asarray(jmodel._derive_row_seeds(key, n)),
+            )

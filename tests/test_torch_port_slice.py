@@ -154,8 +154,15 @@ def test_prompt_arrays_match_jax():
         assert (lens, p) == (ref_lens, ref_p)
         for k in ref:
             np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tm.synthesize("x", ref_audio="ref.wav")
+    # Voice cloning: [ref text][text][ref codes][BOS], the same reference
+    # codes given to both (their encoder is held in test_torch_port_provider.py).
+    codes = np.random.default_rng(0).integers(0, 64, (37, 2)).astype(np.int32)
+    jm._reference_codes = tm._reference_codes = lambda path: codes
+    ref, ref_lens, ref_p = jm._build_prompt_arrays(TEXTS, None, "English", "ref.wav", "ref text")
+    ours, lens, p = tm._build_prompt_arrays(TEXTS, None, "English", "ref.wav", "ref text")
+    assert (lens, p) == (ref_lens, ref_p) and ours["code_mask"].sum() == 37 * len(TEXTS)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
 
 
 def test_model_parameter_names_follow_the_jax_tree():
@@ -176,6 +183,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, importlib, pkgutil\n"
         "import rho_tts_tpu_torch\n"
+        "from rho_tts_tpu_torch import TTSFactory, BaseTTS\n"
+        "import rho_tts_tpu_torch.providers.qwen, rho_tts_tpu_torch.ops.dsp\n"
+        "assert TTSFactory.list_providers() == ['qwen']\n"
         "for m in pkgutil.walk_packages(rho_tts_tpu_torch.__path__, 'rho_tts_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -189,4 +199,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 30
