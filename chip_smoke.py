@@ -34,7 +34,15 @@ Phases, each fatal on failure:
    batch's finalize, none inside it, DSP card vs CPU), then speed/pitch,
    ``stream()`` and a voice clone from a 20 s reference (see
    :func:`run_generate_path`). Each kernel's entry gains
-   ``launches_generate``.
+   ``launches_generate``;
+8. validation: a voice-clone ``generate()`` of the 5 texts with every
+   validator live (GE2E speaker encoder, a drift forest at the trainer's
+   size, Whisper tiny on random weights, beam 5): a permissive gate timed
+   beside the same call without validation, a gate every segment fails
+   (two model calls, the lower-drift attempt kept), one host fetch each for
+   the drift statistics and the STT ids with no host wait before them, and
+   card-vs-CPU checks (see :func:`run_validate_path`). Each kernel's entry
+   gains ``launches_validate``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -807,26 +815,34 @@ def _host_s(events) -> float:
     return sum(h for _, _, h in events)
 
 
+def _sync_checked(fn):
+    """Run ``fn()`` under ``set_sync_debug_mode("error")`` (any host wait
+    raises), then check that the mode catches a fetch (its positive
+    control). Returns ``fn()``'s result, still on the device."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    caught = False
+    try:
+        out = fn()
+        try:
+            torch.zeros(1, device="cuda").sum().item()
+        except RuntimeError:
+            caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not caught:
+        raise AssertionError("sync debug mode did not catch a host fetch")
+    return out
+
+
 def _dsp_card_vs_cpu(dsp, pitch_fn, waves, sr, silence_db: float) -> dict:
     """The fused finalize (one and three segments, with loudness) on the card
     against the same call on the CPU copies, and ``_apply_speed_pitch``; the
     device part of the finalize must not synchronise with the host."""
     out = {}
     for what, segs in (("one segment", waves[:1]), ("three segments", waves[:3])):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")  # any host wait raises here
-        caught = False
-        try:
-            buf, meta = dsp.finalize_segments(segs, sr, loudness=True, defer_fetch=True,
-                                              silence_threshold_db=silence_db)
-            try:  # the mode's positive control: a fetch must raise
-                meta.sum().item()
-            except RuntimeError:
-                caught = True
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        if not caught:
-            raise AssertionError("sync debug mode did not catch a host fetch")
+        buf, meta = _sync_checked(lambda: dsp.finalize_segments(
+            segs, sr, loudness=True, defer_fetch=True, silence_threshold_db=silence_db))
         length, ratio = meta.cpu().tolist()
         card = buf[: int(length)]
         cpu, cpu_ratio = dsp.finalize_segments([w.cpu() for w in segs], sr, loudness=True,
@@ -1068,6 +1084,370 @@ def run_generate_path(qmodel, kmods, build_dir: str, smi: str) -> dict:
     return gen
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the validating voice-clone generate()
+# ---------------------------------------------------------------------------
+
+VOICE_ID = "phase8-voice"
+# Card-vs-CPU tolerances (float32 on both, TF32 off for matmuls; the speaker
+# LSTM and the Whisper convs are float32 matmuls, so cuDNN's TF32 default
+# does not reach them; the FFTs are cuFFT against pocketfft).
+EMBED_TOL = 1e-5  # L2-normalized 256-d embeddings
+MFCC_TOL = 5e-4  # MFCC statistics in dB, magnitudes up to ~600
+AUTOCORR_RTOL = 1e-5  # formant autocorrelation, relative to r[0]
+FOREST_TOL = 1e-6  # the same comparisons; the fold mean and interpolation round
+WHISPER_ENC_TOL = 1e-4  # LayerNorm-ed encoder states of magnitude ~1-5
+WHISPER_LOGIT_TOL = 1e-4  # teacher-forced logits of magnitude ~1
+
+
+def _random_forest_tables(forest_torch, n_features: int, seed: int = 0, device="cuda"):
+    """A forest at the trainer's size (``trainer.train``: 5 isotonic folds x
+    200 trees, max_depth 10) with random full 2,047-node trees, random
+    splits over the 286 features at their typical scales, and a random
+    non-decreasing calibration table per fold with repeated thresholds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    folds, trees_per_fold, depth = 5, 200, 10
+    n_trees, n_nodes = folds * trees_per_fold, 2 ** (depth + 1) - 1
+    inner = np.arange(n_nodes) < 2 ** depth - 1
+    left = np.where(inner, 2 * np.arange(n_nodes) + 1, -1)[None].repeat(n_trees, 0)
+    right = np.where(inner, 2 * np.arange(n_nodes) + 2, -1)[None].repeat(n_trees, 0)
+    feature = rng.integers(0, n_features, (n_trees, n_nodes))
+    # split values drawn around each feature group's scale: embedding, MFCC
+    # means, MFCC stds, F0 mean and std, F1 and F2
+    scale = np.concatenate([np.full(256, 0.1), np.full(13, 100.0), np.full(13, 20.0),
+                            [200.0, 50.0, 800.0, 1500.0]])
+    centre = np.concatenate([np.zeros(256), np.full(13, -150.0), np.full(13, 20.0),
+                             [150.0, 30.0, 600.0, 1500.0]])
+    threshold = centre[feature] + scale[feature] * rng.standard_normal((n_trees, n_nodes))
+    leaf_p1 = rng.uniform(0, 1, (n_trees, n_nodes))
+    fold_id = np.repeat(np.arange(folds), trees_per_fold)
+    cal_x = np.sort(np.round(rng.uniform(0, 1, (folds, 40)), 2), axis=1)  # repeats
+    cal_y = np.sort(rng.uniform(0, 1, (folds, 40)), axis=1)
+    return forest_torch.tables(left, right, feature, threshold, leaf_p1, fold_id, depth,
+                               cal=(cal_x, cal_y), device=device)
+
+
+class _Recorder:
+    """CUDA events (and host seconds) around attributes of modules, classes
+    or instances for the duration of a ``with`` block."""
+
+    def __init__(self, targets):
+        self.targets = targets  # {label: (owner, attribute name)}
+        self.events = {label: [] for label in targets}
+        self.saved = {}
+
+    def __enter__(self):
+        for label, (owner, name) in self.targets.items():
+            self.saved[label] = getattr(owner, name)
+            _timed_method(owner, name, self.events[label])
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, name) in self.targets.items():
+            setattr(owner, name, self.saved[label])
+
+    def ms(self, label) -> float:
+        return _event_ms(self.events[label])
+
+    def host_s(self, label) -> float:
+        return _host_s(self.events[label])
+
+
+def run_validate_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dict:
+    """Phase 8: a voice-clone ``generate()`` with every validator live.
+
+    Qwen3-TTS 1.7B-Base int8 clones phase 7's 20 s, 16 kHz reference; the 5
+    texts go in as one ``generate()``. The GE2E speaker encoder (default
+    weights, the JAX package's draw) embeds the reference at load and the
+    drift features; a random forest at the trainer's size sits in the
+    classifier's cache under the per-voice key (no sklearn needed); Whisper
+    tiny runs on random weights (``RHO_TTS_TPU_STT_ALLOW_RANDOM=1``), beam 5,
+    128 tokens, at ``text_similarity_threshold=0.0``.
+
+    a. a permissive drift gate: every segment passes at once; timed after a
+       warm-up, beside the same call without validation;
+    b. a gate every segment fails (threshold 0.0, ``max_iterations=2``):
+       two model calls, and each item keeps its lower-drift attempt;
+    c. one host fetch for the drift statistics and one for the STT ids, and
+       no host wait before them (``set_sync_debug_mode("error")``);
+    d. card against CPU on the same weights and inputs: the reference
+       embedding, the drift statistics, the forest, Whisper's encoder
+       states and its teacher-forced logits on the card's tokens.
+    """
+    import numpy as np
+
+    from rho_tts_tpu_torch import TTSFactory, audio_io
+    from rho_tts_tpu_torch.models.speaker import SpeakerEncoder
+    from rho_tts_tpu_torch.models.whisper import model as wmodel
+    from rho_tts_tpu_torch.ops import dsp
+    from rho_tts_tpu_torch.validation import classifier as clf
+    from rho_tts_tpu_torch.validation.classifier import forest_torch, trainer
+    from rho_tts_tpu_torch.validation.stt import stt_validator as sv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    saved_env = {k: os.environ.get(k) for k in ("RHO_TTS_TPU_STT_ALLOW_RANDOM",
+                                                 "RHO_TTS_TPU_WHISPER_MODEL",
+                                                 "RHO_TTS_TPU_STT_BEAM")}
+    os.environ.update(RHO_TTS_TPU_STT_ALLOW_RANDOM="1", RHO_TTS_TPU_WHISPER_MODEL="whisper-tiny")
+    os.environ.pop("RHO_TTS_TPU_STT_BEAM", None)  # the default, beam 5
+    sv._whisper.clear()  # phase 7 ran without a Whisper checkpoint: the gate was off
+    sv._whisper_failed = False
+    clf.clear_cache()
+    tables = _random_forest_tables(forest_torch, 286)
+    forest_bytes = sum(t.numel() * t.element_size() for t in tables.values()
+                       if isinstance(t, torch.Tensor))
+    # the per-voice lookup's cache key: no pickle, no sklearn or joblib needed
+    clf._models[VOICE_ID] = clf._forest_arrays[VOICE_ID] = tables
+    clf._thresholds[VOICE_ID] = 0.5
+    fallbacks0, failed0 = trainer.serial_fallbacks, sv.failed_transcriptions
+
+    ref_path = os.path.join(build_dir, "phase7", "reference_16k.wav")
+    t0 = time.perf_counter()
+    tts = TTSFactory.get_tts_instance(
+        "qwen", model_path="Qwen3-TTS-12Hz-1.7B-Base", reference_audio=ref_path,
+        reference_text=TEXTS[0], quantization="int8", device="cuda", min_audio_sec=1000.0,
+        max_iterations=1, accent_drift_threshold=1.01, text_similarity_threshold=0.0)
+    tts.voice_id = VOICE_ID  # as the UI sets it
+    tts.silence_threshold_db = SILENCE_DB
+    tts.max_decay_retries = 1  # the decay gate is phase 7's; here one pass per gate
+    model = tts._load_model()  # computes the reference embedding
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if tts.reference_embedding is None or tts.reference_embedding.shape != (256,) \
+            or not np.isfinite(tts.reference_embedding).all():
+        raise AssertionError(f"reference embedding {tts.reference_embedding!r}")
+    cfg, sr, chunk = model.config, model.sample_rate, qmodel._chunk()
+    layers = cfg.talker.layers
+    ref_ev = []
+    tts._reference_embedding_initialized = False
+    _timed_method(tts, "_initialize_reference_embedding", ref_ev)
+    tts._initialize_reference_embedding()
+    del tts._initialize_reference_embedding
+
+    outs = []
+    inner_gen = tts._generate_audio
+
+    def recording_gen(*args, **kwargs):
+        res = inner_gen(*args, **kwargs)
+        outs.append(res)
+        return res
+
+    tts._generate_audio = recording_gen
+    drift_probs = []
+    inner_probs = clf.predict_accent_drift_probability_batch
+
+    def recording_probs(*args, **kwargs):
+        res = inner_probs(*args, **kwargs)
+        drift_probs.append(res)
+        return res
+
+    clf.predict_accent_drift_probability_batch = recording_probs
+    out = {"card": smi, "preset": cfg.name, "quantization": model.quantization,
+           "batch": len(TEXTS), "init_s": init_s, "forest": {
+               "folds": 5, "trees": 1000, "max_depth": 10, "nodes_per_tree": 2047,
+               "bytes_on_card": forest_bytes},
+           "whisper": {"preset": "tiny", "beam": 5, "max_tokens": 128},
+           "reference_embedding_ms": _event_ms(ref_ev),
+           "reference_embedding_host_s": _host_s(ref_ev)}
+    try:
+        # -- the same clone without validation (max_iterations=1) ---------------
+        tts.generate(TEXTS)  # warm-up of the model path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = tts.generate(TEXTS)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+
+        # -- a. every validator live, a permissive gate -------------------------
+        tts.max_iterations = 10
+        t0 = time.perf_counter()
+        tts.generate(TEXTS)  # warm-up: Whisper on the card, cuFFT plans, constants
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for mod in kmods.values():
+            mod.launches = 0
+        outs.clear()
+        drift_probs.clear()
+        fetch0 = (trainer.fetches, wmodel.fetches, dsp.fetches)
+        probes = _Recorder({
+            "drift_batch": (tts, "_validate_accent_drift_batch"),
+            "drift_features": (trainer, "extract_features_batch_audio"),
+            "forest": (forest_torch, "predict_proba"),
+            "stt_batch": (tts, "_validate_text_match_batch"),
+            "stt_resample": (wmodel.WhisperTranscriber, "prepare"),
+            "stt_mel": (wmodel, "log_mel_spectrogram"),
+            "stt_encode": (wmodel, "encode"),
+            "stt_beam_decode": (wmodel, "beam_decode"),
+        })
+        with StageClock(qmodel) as clock, probes:
+            t0 = time.perf_counter()
+            results = tts.generate(TEXTS)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        launches_a = {name: mod.launches for name, mod in kmods.items()}
+        fetches = {"drift_statistics": trainer.fetches - fetch0[0],
+                   "stt_ids": wmodel.fetches - fetch0[1], "finalize": dsp.fetches - fetch0[2]}
+        steps = len(clock.events["decode_chunk"]) * chunk
+        want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
+                "w8a8_matmul": 0, "int4_matmul": 0}
+        if launches_a != want or len(outs) != 1:
+            raise AssertionError(f"validate (a): launches {launches_a} vs {want}, "
+                                 f"{len(outs)} model calls")
+        if fetches != {"drift_statistics": 1, "stt_ids": 1, "finalize": 1}:
+            raise AssertionError(f"validate (a): host fetches {fetches}")
+        probs_a = drift_probs[0]
+        if not isinstance(results, list) or len(results) != len(TEXTS) or None in results \
+                or None in probs_a or not all(0.0 <= p <= 1.0 for p in probs_a):
+            raise AssertionError(f"validate (a): results {results!r}, drift {probs_a}")
+        for i, r in enumerate(results):
+            if not bool(torch.isfinite(r.audio).all()) or r.drift_prob != probs_a[i] \
+                    or r.text_similarity is None:
+                raise AssertionError(f"validate (a) item {i}: drift {r.drift_prob} vs "
+                                     f"{probs_a[i]}, similarity {r.text_similarity}")
+        audio_s = sum(r.duration_sec for r in results)
+        validation_ms = probes.host_s("drift_batch") * 1e3 + probes.host_s("stt_batch") * 1e3
+        out["a_permissive"] = {
+            "generate_wall_s": wall_s, "audio_s": audio_s, "rtf": audio_s / wall_s,
+            "warmup_s": warm_s, "decode_steps": steps,
+            "without_validation_wall_s": plain_s,
+            "without_validation_rtf": sum(r.duration_sec for r in plain) / plain_s,
+            "phase7_customvoice_wall_s": gen7["generate_wall_s"],
+            "validation_host_ms": validation_ms, "validation_share": validation_ms / 1e3 / wall_s,
+            "drift_host_ms": probes.host_s("drift_batch") * 1e3,
+            "stt_host_ms": probes.host_s("stt_batch") * 1e3,
+            "drift_features_ms": probes.ms("drift_features"), "forest_ms": probes.ms("forest"),
+            "stt_ms": {k: probes.ms(f"stt_{k}") for k in ("resample", "mel", "encode",
+                                                            "beam_decode")},
+            "drift_probs": probs_a, "text_similarity": [r.text_similarity for r in results],
+            "host_fetches": fetches, "launches": launches_a,
+        }
+        audios = outs[0]
+
+        # -- b. a gate every segment fails: two attempts, the lower drift kept ---
+        tts.accent_drift_threshold = 0.0
+        tts.max_iterations = 2
+        outs.clear()
+        drift_probs.clear()
+        for mod in kmods.values():
+            mod.launches = 0
+        with StageClock(qmodel) as bclock:
+            t0 = time.perf_counter()
+            b_results = tts.generate(TEXTS)
+            torch.cuda.synchronize()
+            b_wall = time.perf_counter() - t0
+        launches_b = {name: mod.launches for name, mod in kmods.items()}
+        b_steps = len(bclock.events["decode_chunk"]) * chunk
+        want_b = {"prefill_gqa_attention": 2 * layers, "decode_gqa_attention": layers * b_steps,
+                  "w8a8_matmul": 0, "int4_matmul": 0}
+        if len(outs) != 2 or len(drift_probs) != 2 or launches_b != want_b:
+            raise AssertionError(f"validate (b): {len(outs)} model calls, launches {launches_b}"
+                                 f" vs {want_b}")
+        kept = []
+        for i, r in enumerate(b_results):
+            p1, p2 = drift_probs[0][i], drift_probs[1][i]
+            pick = 0 if p1 <= p2 else 1  # best-by-drift: a later attempt must be lower
+            direct, _ = dsp.finalize_segments([outs[pick][i]], sr, loudness=True,
+                                              silence_threshold_db=SILENCE_DB)
+            if r is None or r.drift_prob != min(p1, p2) or not torch.equal(r.audio, direct):
+                raise AssertionError(f"validate (b) item {i}: drift {r and r.drift_prob} vs "
+                                     f"{(p1, p2)}, or not the lower-drift attempt's audio")
+            kept.append(pick)
+        out["b_every_segment_fails"] = {
+            "generate_wall_s": b_wall, "model_calls": 2, "decode_steps": b_steps,
+            "drift_probs": drift_probs, "kept_attempt": kept, "launches": launches_b}
+
+        # -- c. one fetch each, no host wait before it ------------------------
+        packed, _sizes = _sync_checked(
+            lambda: trainer.batch_statistics(audios, sr, audios[0].device))
+        packed_host = packed.cpu()
+        tr = sv._whisper[str(audios[0].device)]
+        toks = _sync_checked(lambda: tr.model.tokens_on_device(
+            tr.prepare(audios, [sr] * len(audios)), 128, 5))
+        toks_host = toks.cpu().numpy()
+        texts = [tr.tokenizer.decode([int(t) for t in row if int(t) < tr.model.cfg.eot])
+                 for row in toks_host]
+        out["c_sync"] = {"drift_statistics_host_waits_before_fetch": 0,
+                         "stt_ids_host_waits_before_fetch": 0,
+                         "stt_ids_equal_to_a": True}
+        sims = [sv.calculate_text_similarity(t, x.strip()) if x.strip() else 0.0
+                for t, x in zip(TEXTS, texts)]
+        if sims != out["a_permissive"]["text_similarity"]:
+            raise AssertionError(f"STT ids differ from (a)'s: {sims} vs "
+                                 f"{out['a_permissive']['text_similarity']}")
+
+        # -- d. card against CPU -------------------------------------------------
+        checks = {}
+        wav, wav_sr = audio_io.load_wav(ref_path)
+        cpu_enc = SpeakerEncoder(params=_tree_map(torch.Tensor.cpu, tts.speaker_encoder.params),
+                                 device="cpu")
+        err = float(np.abs(cpu_enc.embed_utterance(wav, wav_sr) - tts.reference_embedding).max())
+        checks["reference_embedding"] = {"max_abs_err": err, "tol": EMBED_TOL}
+        trainer._encoders["cpu"] = cpu_enc
+        cpu_packed, sizes = trainer.batch_statistics([a.cpu() for a in audios], sr, "cpu")
+        groups = dict(zip(("mfcc_mean", "mfcc_std", "f0_mean", "f0_std", "embedding",
+                           "autocorr"),
+                          zip(torch.split(packed_host, sizes, dim=1),
+                              torch.split(cpu_packed, sizes, dim=1))))
+        for name, tol in (("mfcc_mean", MFCC_TOL), ("mfcc_std", MFCC_TOL),
+                          ("embedding", EMBED_TOL)):
+            card, host = groups[name]
+            checks[name] = {"max_abs_err": (card - host).abs().max().item(), "tol": tol}
+        card, host = groups["autocorr"]
+        checks["autocorr"] = {
+            "max_rel_err": ((card - host).abs() / host[:, :1].abs().clamp_min(1e-30)).max().item(),
+            "tol": AUTOCORR_RTOL}
+        for name in ("f0_mean", "f0_std"):  # YIN decisions may flip near a threshold
+            card, host = groups[name]
+            checks[name] = {"max_abs_err_hz": (card - host).abs().max().item(), "required": False}
+        feats = np.stack(trainer.extract_features_batch_audio(audios, sr))
+        card_p = forest_torch.predict_proba(tables, feats).cpu()
+        cpu_p = forest_torch.predict_proba(forest_torch.to_device(tables, "cpu"), feats)
+        checks["forest"] = {"max_abs_err": (card_p - cpu_p).abs().max().item(),
+                            "tol": FOREST_TOL, "probs": card_p.tolist()}
+        rows = 2
+        wparams_cpu = _tree_map(torch.Tensor.cpu, tr.model.params)
+        with torch.inference_mode():
+            mels = wmodel.log_mel_spectrogram(torch.stack(
+                tr.prepare(audios[:rows], [sr] * rows)))[:, :wmodel.CHUNK_FRAMES]
+            enc = wmodel.encode(tr.model.params, tr.model.cfg, mels)
+            enc_cpu = wmodel.encode(wparams_cpu, tr.model.cfg, mels.cpu())
+            checks["whisper_encoder"] = {"max_abs_err": (enc.cpu() - enc_cpu).abs().max().item(),
+                                         "tol": WHISPER_ENC_TOL,
+                                         "max_abs": enc_cpu.abs().max().item()}
+            seq = torch.cat([torch.tensor([tr.model.prompt] * rows), torch.from_numpy(
+                toks_host[:rows])], dim=1)
+            logits = wmodel.decoder_logits(tr.model.params, tr.model.cfg, enc, seq.to(enc.device))
+            logits_cpu = wmodel.decoder_logits(wparams_cpu, tr.model.cfg, enc.cpu(), seq)
+        p = len(tr.model.prompt)
+        agree = (logits_cpu[:, p - 1:-1].argmax(-1) == seq[:, p:]).float().mean().item()
+        checks["whisper_logits"] = {"max_abs_err": (logits.cpu() - logits_cpu).abs().max().item(),
+                                    "tol": WHISPER_LOGIT_TOL,
+                                    "cpu_token_agreement": agree, "required_agreement": None}
+        out["d_card_vs_cpu"] = checks
+        bad = {k: v for k, v in checks.items() if "tol" in v and not (
+            v.get("max_abs_err", v.get("max_rel_err")) <= v["tol"])}
+        if bad:
+            raise AssertionError(f"validate card vs CPU: {bad}")
+        out["events"] = {"serial_fallbacks": trainer.serial_fallbacks - fallbacks0,
+                         "failed_transcriptions": sv.failed_transcriptions - failed0}
+        if out["events"] != {"serial_fallbacks": 0, "failed_transcriptions": 0}:
+            raise AssertionError(f"validate: fallback events {out['events']}")
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        clf.predict_accent_drift_probability_batch = inner_probs
+        for k, v in saved_env.items():
+            _restore_env(k, v)
+    tts.close()
+    clf.clear_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     parser.add_argument("--parent", default=None,
@@ -1142,8 +1522,11 @@ def main(argv=None) -> int:
     log(f"phase 5 int4 path: {json.dumps(int4_path)}")
     w8a8_path = run_w8a8_prefill(qmodel, kmods, main_path["prefill_ms"])
     log(f"phase 6 w8a8 prefill: {json.dumps(w8a8_path)}")
-    gen_path = run_generate_path(qmodel, kmods, os.path.join(os.path.dirname(src), "build"), smi)
+    build_dir = os.path.join(os.path.dirname(src), "build")
+    gen_path = run_generate_path(qmodel, kmods, build_dir, smi)
     log(f"phase 7 generate(): {json.dumps(gen_path)}")
+    val_path = run_validate_path(qmodel, kmods, build_dir, smi, gen_path)
+    log(f"phase 8 validate(): {json.dumps(val_path)}")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -1153,6 +1536,8 @@ def main(argv=None) -> int:
         k["launches"] = path["launches"][k["name"]]
         k["launches_path"] = f"1.7B {path_name}, {path['decode_steps']} decode steps"
         k["launches_generate"] = gen_path["launches"][k["name"]]
+        k["launches_validate"] = {"a": val_path["a_permissive"]["launches"][k["name"]],
+                                  "b": val_path["b_every_segment_fails"]["launches"][k["name"]]}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

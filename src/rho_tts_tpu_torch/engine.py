@@ -18,11 +18,13 @@ on the waveform's device, saving, the async wrapper and the streaming API.
   chunks.
 * Smart segmentation reads the card's free memory
   (``torch.cuda.mem_get_info``), or the host's when on the CPU.
-* The validation backends (the drift classifier, Whisper STT, the speaker
-  encoder) are not ported yet (ROADMAP queue 1 item 8). The hooks answer
-  as the JAX package does on a machine without a drift model or a Whisper
-  checkpoint (pass, with a warning), and raise ``NotImplementedError``
-  where the caller asked for what only those modules can do.
+* Validation is the JAX package's: the accent-drift classifier
+  (``validation.classifier``), the Whisper text match (``validation.stt``)
+  and speaker similarity (``models.speaker``), with the same model lookup,
+  thresholds and ``None`` → pass rules. A batch's drift features run as one
+  pass on the waveforms' device, then its transcription; the text match is
+  called after the drift gate, in line (the JAX package transcribes on a
+  worker thread meanwhile, with the same results).
 * The continuous-batching served path (``serving=True``) waits for the
   serving engine (ROADMAP queue 1 item 9).
 
@@ -62,8 +64,6 @@ DEFAULT_PHONETIC_MAPPING: Dict[str, str] = {}
 
 # Error substrings that mark a retryable device-memory failure.
 _OOM_MARKERS = ("out of memory", "resource exhausted", "length")
-
-_VALIDATION_ITEM = "ROADMAP queue 1 item 8"
 
 
 class BaseTTS(ABC):
@@ -160,9 +160,6 @@ class BaseTTS(ABC):
         self._speaker_encoder = None
         self.reference_embedding = None
 
-        # Validation backends not ported yet, warned about once each
-        self._warned_unported: set = set()
-
     # -- Context manager protocol -------------------------------------------
 
     def close(self) -> None:
@@ -211,10 +208,13 @@ class BaseTTS(ABC):
 
     @property
     def speaker_encoder(self):
-        """The speaker encoder of similarity validation: not ported yet."""
-        raise NotImplementedError(
-            f"the speaker encoder (models/speaker) is not ported yet: {_VALIDATION_ITEM}"
-        )
+        """Lazy-load the speaker encoder for similarity validation, on the
+        engine's device."""
+        if self._speaker_encoder is None:
+            from .models.speaker import SpeakerEncoder
+
+            self._speaker_encoder = SpeakerEncoder(device=self.device)
+        return self._speaker_encoder
 
     # -- Smart segmentation ---------------------------------------------------
 
@@ -260,40 +260,69 @@ class BaseTTS(ABC):
 
     # -- Validation hooks -----------------------------------------------------
 
-    def _warn_unported(self, key: str, message: str) -> None:
-        if key not in self._warned_unported:
-            self._warned_unported.add(key)
-            logger.warning(message)
-
-    def _require_drift_backend(self) -> None:
-        """Raise when the caller asked for a drift model: only the
-        classifier, not ported yet, can honour that."""
-        if self.drift_model_path is not None:
-            raise NotImplementedError(
-                f"drift_model_path={self.drift_model_path!r} needs the drift classifier "
-                f"(validation/classifier), not ported yet: {_VALIDATION_ITEM}"
-            )
-
     def _validate_accent_drift(self, audio, sample_rate: int) -> tuple:
-        """Accent-drift probability for in-memory audio; (prob, passed).
-
-        The drift classifier is not ported: as the JAX package on a machine
-        without a drift model, a cloned voice passes (0.0, True), with a
-        warning; an explicit ``drift_model_path`` raises.
-        """
+        """Accent-drift probability for in-memory audio; (prob, passed)."""
         if not getattr(self, "voice_cloning", False):
             return 0.0, True
-        self._require_drift_backend()
-        self._warn_unported("drift", "Accent drift validation skipped: the drift classifier "
-                            f"(validation/classifier) is not ported yet ({_VALIDATION_ITEM})")
-        return 0.0, True
+        try:
+            from .validation.classifier import predict_accent_drift_probability
+
+            drift_prob = predict_accent_drift_probability(
+                audio,
+                sample_rate=sample_rate,
+                voice_id=self.voice_id,
+                model_path=self.drift_model_path,
+                device=self.device,
+            )
+            if drift_prob is None:
+                logger.warning(
+                    "Accent drift analysis failed (feature extraction error), skipping validation"
+                )
+                return 0.0, True
+            passed = drift_prob < self.accent_drift_threshold
+            logger.info(
+                f"Accent drift likelihood: {drift_prob:.2f} "
+                f"(threshold: {self.accent_drift_threshold:.2f})"
+            )
+            return drift_prob, passed
+        except ImportError:
+            logger.debug("Accent drift classifier not available, skipping validation")
+            return 0.0, True
 
     def _validate_accent_drift_batch(self, audios, sample_rate: int) -> list:
-        """Batched accent-drift validation; list of (prob, passed), per
-        segment as :meth:`_validate_accent_drift`."""
+        """Batched accent-drift validation; list of (prob, passed).
+
+        One bucketed feature pass on the device scores every segment (see
+        ``validation.classifier.trainer.extract_features_batch_audio``);
+        semantics per segment match :meth:`_validate_accent_drift`.
+        """
         if not getattr(self, "voice_cloning", False):
             return [(0.0, True)] * len(audios)
-        return [self._validate_accent_drift(a, sample_rate) for a in audios]
+        # Providers (and tests) may override the per-segment hook; the
+        # batched fast path only applies to the stock implementation.
+        bound = self._validate_accent_drift
+        if getattr(bound, "__func__", None) is not BaseTTS._validate_accent_drift:
+            return [bound(a, sample_rate) for a in audios]
+        try:
+            from .validation.classifier import predict_accent_drift_probability_batch
+
+            probs = predict_accent_drift_probability_batch(
+                audios,
+                sample_rate,
+                voice_id=self.voice_id,
+                model_path=self.drift_model_path,
+                device=self.device,
+            )
+        except ImportError:
+            logger.debug("Accent drift classifier not available, skipping validation")
+            return [(0.0, True)] * len(audios)
+        out = []
+        for prob in probs:
+            if prob is None:
+                out.append((0.0, True))
+            else:
+                out.append((prob, prob < self.accent_drift_threshold))
+        return out
 
     def _auto_sort_audio(self, audio, drift_prob: float) -> None:
         """Save audio to the good/ or bad/ training folder based on drift score."""
@@ -321,33 +350,31 @@ class BaseTTS(ABC):
         except OSError as e:
             logger.warning(f"      Auto-sort failed (non-fatal): {e}")
 
-    def _require_stt_backend(self) -> None:
-        """Raise when ``RHO_TTS_TPU_WHISPER_MODEL`` names a checkpoint
-        directory: only the Whisper model, not ported yet, can use it."""
-        path = os.environ.get("RHO_TTS_TPU_WHISPER_MODEL")
-        if path and os.path.isdir(path):
-            raise NotImplementedError(
-                f"RHO_TTS_TPU_WHISPER_MODEL={path!r} needs the Whisper STT validator "
-                f"(models/whisper, validation/stt), not ported yet: {_VALIDATION_ITEM}"
-            )
-
     def _validate_text_match(self, audio, sample_rate: int, expected_text: str) -> tuple:
-        """STT text-match validation; (is_accurate, similarity, transcribed).
+        """STT text-match validation; (is_accurate, similarity, transcribed)."""
+        try:
+            from .validation.stt.stt_validator import validate_audio_text_match
 
-        Whisper is not ported: as the JAX package without a Whisper
-        checkpoint, transcription is unavailable and the segment passes
-        (True, 0.0, None), with a warning; a checkpoint directory in
-        ``RHO_TTS_TPU_WHISPER_MODEL`` raises.
-        """
-        self._require_stt_backend()
-        self._warn_unported("stt", "STT validation skipped: the Whisper validator "
-                            f"(models/whisper, validation/stt) is not ported yet "
-                            f"({_VALIDATION_ITEM})")
-        return True, 0.0, None
+            return validate_audio_text_match(
+                (audio, sample_rate), expected_text, self.text_similarity_threshold,
+                device=self.device,
+            )
+        except ImportError:
+            logger.debug("STT validator not available, skipping text validation")
+            return True, 1.0, None
 
     def _validate_text_match_batch(self, audios, sample_rate: int, texts) -> list:
-        """Batched STT validation: per segment as :meth:`_validate_text_match`."""
-        return [self._validate_text_match(a, sample_rate, t) for a, t in zip(audios, texts)]
+        """Batched STT validation (one transcription pass per batch)."""
+        try:
+            from .validation.stt.stt_validator import validate_audio_text_match_batch
+
+            return validate_audio_text_match_batch(
+                [(a, sample_rate) for a in audios], texts, self.text_similarity_threshold,
+                device=self.device,
+            )
+        except ImportError:
+            logger.debug("STT validator not available, skipping text validation")
+            return [(True, 1.0, None) for _ in audios]
 
     def _log_text_diff(self, expected: str, transcribed: str) -> None:
         """Log word-level differences between expected and transcribed text."""
@@ -392,11 +419,14 @@ class BaseTTS(ABC):
         return ratio, ratio >= threshold
 
     def _compute_speaker_similarity(self, audio) -> float:
-        """Cosine similarity between generated audio and the reference voice:
-        needs the speaker encoder, not ported yet."""
-        raise NotImplementedError(
-            f"speaker similarity needs the speaker encoder (models/speaker), not ported yet: "
-            f"{_VALIDATION_ITEM}"
+        """Cosine similarity between generated audio and the reference voice."""
+        generated_embedding = np.asarray(
+            self.speaker_encoder.embed_utterance(audio, self.sample_rate)
+        )
+        reference = np.asarray(self.reference_embedding)
+        return float(
+            np.dot(reference, generated_embedding)
+            / (np.linalg.norm(reference) * np.linalg.norm(generated_embedding))
         )
 
     # -- DSP (delegates to ops.dsp) -------------------------------------------
@@ -577,8 +607,6 @@ class BaseTTS(ABC):
                                     outs[i], self.sample_rate
                                 )
                                 self._auto_sort_audio(outs[i], drift_prob)
-                            except NotImplementedError:
-                                raise  # unported: never skipped quietly
                             except Exception as e:  # noqa: BLE001
                                 logger.warning(f"    Auto-sort drift check failed ({e})")
                 break
@@ -594,8 +622,6 @@ class BaseTTS(ABC):
                         drift_results = self._validate_accent_drift_batch(
                             [outs[i] for i in gen_idx], self.sample_rate
                         )
-                except NotImplementedError:
-                    raise  # unported: never skipped quietly
                 except Exception as e:  # noqa: BLE001
                     logger.warning(f"    Batched drift validation error ({e})")
 
@@ -622,17 +648,16 @@ class BaseTTS(ABC):
                             f"    Segment {i + 1} invalid: drift={drift_prob:.3f}"
                         )
                         still_pending.append(i)
-                except NotImplementedError:
-                    raise  # unported: never skipped quietly
                 except Exception as e:  # noqa: BLE001
                     logger.warning(f"    Segment {i + 1}: validation error ({e})")
                     still_pending.append(i)
 
             # Phase 2: text match for the drift-passing segments, as one
             # batch. The JAX package transcribes every generated segment on
-            # a worker thread while drift runs; with no Whisper backend
-            # ported (ROADMAP queue 1 item 8) there is nothing to overlap,
-            # so the port calls the hook here, with the same results.
+            # a worker thread while drift runs and keeps the drift-passing
+            # ones' results; the port transcribes those segments after the
+            # drift gate, in line (whether the overlap pays is measured by
+            # chip_smoke.py's phase 8: drift and STT times apart).
             if voice_ok_idx:
                 try:
                     with profiling.stage("validate/stt"):
@@ -640,8 +665,6 @@ class BaseTTS(ABC):
                             [outs[i] for i in voice_ok_idx], self.sample_rate,
                             [segments[i] for i in voice_ok_idx],
                         )
-                except NotImplementedError:
-                    raise  # unported: never skipped quietly
                 except Exception as e:  # noqa: BLE001
                     logger.warning(f"    Batched STT validation error ({e})")
                     stt_results = [(True, 1.0, None)] * len(voice_ok_idx)
@@ -760,8 +783,6 @@ class BaseTTS(ABC):
                     drift_results = self._validate_accent_drift_batch(
                         cands, self.sample_rate
                     )
-            except NotImplementedError:
-                raise  # unported: never skipped quietly
             except Exception as e:  # noqa: BLE001
                 # Same fallback as the lockstep batched path: keep the
                 # candidates and validate each one individually.
@@ -778,8 +799,6 @@ class BaseTTS(ABC):
                             cands[pos], self.sample_rate
                         )
                     self._auto_sort_audio(cands[pos], drift_prob)
-                except NotImplementedError:
-                    raise  # unported: never skipped quietly
                 except Exception as e:  # noqa: BLE001
                     logger.warning(
                         f"    Segment {seg_idx + 1} candidate {pos + 1}: "
@@ -805,8 +824,6 @@ class BaseTTS(ABC):
                         self.sample_rate,
                         [segment] * len(passing),
                     )
-            except NotImplementedError:
-                raise  # unported: never skipped quietly
             except Exception as e:  # noqa: BLE001
                 # The sequential loop this path replaces treats a validation
                 # exception as a failed attempt (retry) — match it rather
@@ -1194,8 +1211,6 @@ class BaseTTS(ABC):
                                         audio, self.sample_rate
                                     )
                                     self._auto_sort_audio(audio, drift_prob)
-                                except NotImplementedError:
-                                    raise  # unported: never skipped quietly
                                 except Exception as e:
                                     logger.warning(
                                         f"    Auto-sort drift check failed ({e})"
@@ -1249,8 +1264,6 @@ class BaseTTS(ABC):
                                 f"{', '.join(reasons)}, retrying "
                                 f"({iteration + 1}/{self.max_iterations})"
                             )
-                        except NotImplementedError:
-                            raise  # unported: never skipped quietly
                         except Exception as e:
                             logger.warning(
                                 f"    Segment {seg_idx + 1}: validation error ({e})"
@@ -1562,8 +1575,6 @@ class BaseTTS(ABC):
             if chunk_ok:
                 try:
                     chunk_iter = self._stream_audio_chunks(segment, token)
-                except NotImplementedError:
-                    raise  # unported: never skipped quietly
                 except Exception as e:  # noqa: BLE001
                     logger.warning(f"Segment {seg_idx + 1} failed: {e}")
                     continue
@@ -1572,8 +1583,6 @@ class BaseTTS(ABC):
                         yield from self._stream_segment_chunks(
                             chunk_iter, token, seg_idx
                         )
-                    except NotImplementedError:
-                        raise  # unported: never skipped quietly
                     except Exception as e:  # noqa: BLE001
                         # Same per-segment skip semantics as the
                         # non-chunked path below; the failed segment's
@@ -1585,8 +1594,6 @@ class BaseTTS(ABC):
             try:
                 raw = self._generate_audio(segment)
                 audio = self._post_process_audio(raw)
-            except NotImplementedError:
-                raise  # unported: never skipped quietly
             except Exception as e:
                 logger.warning(f"Segment {seg_idx + 1} failed: {e}")
                 continue

@@ -6,9 +6,12 @@ dicts/lists of numpy arrays to :func:`params_from_numpy`. bf16 and float8
 arrays (numpy's ``ml_dtypes`` types) are reinterpreted bit for bit; int8
 ``{"q", "s"}`` leaves pass through unchanged.
 
-Codec conv weights change layout: JAX keeps ``(K, Cin, Cout)``; the port
-keeps torch's ``(Cout, Cin, K)`` for a convolution and ``(Cin, Cout, K)``
-for a transposed convolution (``codec.decoder.ups``), unflipped.
+Conv weights change layout: JAX keeps ``(K, Cin, Cout)``; the port keeps
+torch's ``(Cout, Cin, K)`` for a convolution and ``(Cin, Cout, K)`` for a
+transposed convolution (``codec.decoder.ups``), unflipped. That covers the
+Qwen codec's convs and the Whisper tree's stem (``conv1.w``, ``conv2.w``).
+The speaker encoder's tree crosses as it is: the port keeps the JAX layout
+of its LSTM (``lstm[i].{w_ih (D, 4H), w_hh (H, 4H), bias}``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _is_conv(path: Tuple[str, ...], a: np.ndarray) -> bool:
-    return len(path) > 1 and path[0] == "codec" and path[1] != "rvq" and a.ndim == 3
+    if a.ndim != 3 or len(path) < 2:
+        return False
+    if path[0] == "codec":
+        return path[1] != "rvq"
+    return path[0] in ("conv1", "conv2") and path[1] == "w"  # the Whisper stem
 
 
 def params_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:

@@ -1,4 +1,5 @@
-"""Host-side checkpoint conversion utilities: HF safetensors to the port's tensors.
+"""Host-side checkpoint conversion utilities: HF safetensors and torch
+``.pt`` state dicts to the port's tensors.
 
 The port's copy of ``rho_tts_tpu/models/hf_weights.py``, on torch tensors
 instead of numpy arrays (``safetensors.torch`` also reads bf16, which numpy
@@ -34,6 +35,24 @@ def read_safetensors(model_path: str) -> Optional[Tensors]:
     for f in files:
         tensors.update(load_file(f, device="cpu"))
     return tensors
+
+
+def read_torch_state(path: str) -> Optional[Tensors]:
+    """A torch ``.pt`` checkpoint's tensors as float32 CPU tensors.
+
+    Loads with ``weights_only=True`` and unwraps ``{"model_state": ...}``
+    (the resemblyzer/GE2E convention), ``{"state_dict": ...}`` and
+    ``{"model": ...}``.
+    """
+    if not os.path.isfile(path):
+        return None
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("model_state", "state_dict", "model"):
+        if isinstance(state, dict) and wrapper in state and isinstance(state[wrapper], dict):
+            state = state[wrapper]
+            break
+    return {k: v.detach().to(torch.float32) for k, v in state.items()
+            if isinstance(v, torch.Tensor)}
 
 
 def scope(tensors: Tensors, include: Optional[Sequence[str]] = None,

@@ -504,7 +504,7 @@ class QwenTTSModel(nn.Module):
                        language: str = "English", ref_audio: Optional[str] = None,
                        ref_text: Optional[str] = None, max_frames: Optional[int] = None,
                        min_frames: int = 0, temperature: Optional[float] = None,
-                       top_k: Optional[int] = None, rng: Optional[torch.Generator] = None,
+                       top_k: Optional[int] = None, rng: Optional[torch.Tensor] = None,
                        cancel_check=None, prebuilt_prompt=None,
                        seeds: Optional[Sequence[int]] = None) -> List[np.ndarray]:
         """Prefill + chunked AR decode; returns per-text ``(T, nq)`` int32 code arrays.
@@ -512,8 +512,9 @@ class QwenTTSModel(nn.Module):
         ``min_frames`` masks EOS for the first N frames. ``seeds`` (one int
         per text, or an integer tensor such as :func:`_derive_row_seeds`
         gives) makes sampling schedule-reproducible and equal to the JAX
-        package's for the same seeds; without them the seeds are drawn from
-        ``rng`` (a CPU ``torch.Generator``, seed 0 by default).
+        package's for the same seeds; without them they are
+        ``_derive_row_seeds(rng, n)`` of a threefry key ``rng`` ``(2,)``
+        (``prng.PRNGKey(0)`` by default), the JAX package's draw.
         """
         codes_dev, done_dev, n_real = self._generate_codes_arrays(
             texts, speaker=speaker, language=language, ref_audio=ref_audio,
@@ -572,9 +573,7 @@ class QwenTTSModel(nn.Module):
             )
 
         if seeds is None:
-            if rng is None:
-                rng = torch.Generator().manual_seed(0)
-            seeds_b = torch.randint(0, np.iinfo(np.int32).max, (n_real,), generator=rng)
+            seeds_b = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, n_real)
         else:
             if len(seeds) != n_real:
                 raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
@@ -626,7 +625,7 @@ class QwenTTSModel(nn.Module):
                    language: str = "English", ref_audio: Optional[str] = None,
                    ref_text: Optional[str] = None, max_frames: Optional[int] = None,
                    min_frames: int = 0, temperature: Optional[float] = None,
-                   top_k: Optional[int] = None, rng: Optional[torch.Generator] = None,
+                   top_k: Optional[int] = None, rng: Optional[torch.Tensor] = None,
                    cancel_check=None,
                    seeds: Optional[Sequence[int]] = None) -> Tuple[List[torch.Tensor], int]:
         """Full text -> waveform path. Returns (list of 1-D f32 waveforms, sr).
@@ -692,7 +691,7 @@ class QwenTTSModel(nn.Module):
                       ref_audio: Optional[str] = None, ref_text: Optional[str] = None,
                       max_frames: Optional[int] = None, min_frames: int = 0,
                       temperature: Optional[float] = None, top_k: Optional[int] = None,
-                      rng: Optional[torch.Generator] = None, cancel_check=None,
+                      rng: Optional[torch.Tensor] = None, cancel_check=None,
                       context_frames: int = 32, seed: Optional[int] = None):
         """Incremental synthesis: yields waveform pieces per decode chunk.
 
@@ -704,7 +703,8 @@ class QwenTTSModel(nn.Module):
         samples within the convolutions' rounding). Each chunk's codes come
         to the host (the one fetch a chunk costs), which decides what to
         emit. ``seed`` is the row's sampling seed (``_derive_row_seeds``);
-        without it one is drawn from ``rng``.
+        without it, ``_derive_row_seeds(rng, 1)`` of a threefry key ``rng``
+        (``prng.PRNGKey(0)`` by default).
 
         Yields (waveform_piece (S,) on the device, sample_rate). Single
         stream (B=1).
@@ -714,9 +714,7 @@ class QwenTTSModel(nn.Module):
         temperature = cfg.temperature if temperature is None else temperature
         top_k = cfg.top_k if top_k is None else top_k
         if seed is None:
-            if rng is None:
-                rng = torch.Generator().manual_seed(0)
-            seed = int(torch.randint(0, np.iinfo(np.int32).max, (1,), generator=rng))
+            seed = int(_derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, 1)[0])
 
         if max_frames is None:
             max_frames = int(np.clip(len(text) * 1.0 + 50, _chunk(), 1500))

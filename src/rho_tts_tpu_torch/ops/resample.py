@@ -13,9 +13,9 @@ which would round the input to 10 mantissa bits; float32 matmuls do not use
 TF32 unless the caller turns on ``torch.backends.cuda.matmul.allow_tf32``.
 
 Used for playback-speed adjustment (reference ``base_tts.py:631-638``),
-the pitch shifter, and resampling reference audio to the codec's rate.
-The JAX package's ``resample_batch`` serves the validation frontends and
-comes with them (ROADMAP queue 1 item 8).
+the pitch shifter, resampling reference audio to the codec's rate, and
+(:func:`resample_batch`) the 16 kHz inputs of the Whisper and drift-feature
+batch paths.
 """
 
 from __future__ import annotations
@@ -73,3 +73,24 @@ def resample(audio, orig_freq: int, new_freq: int) -> torch.Tensor:
     g = math.gcd(orig_freq, new_freq)
     of, nf = orig_freq // g, new_freq // g
     return _resample_core(a, of, nf, math.ceil(nf * a.shape[-1] / of))
+
+
+def resample_batch(wavs: torch.Tensor, orig_freq: int, new_freq: int,
+                   target_length: int) -> torch.Tensor:
+    """Resample a (B, L) batch to ``target_length`` samples per row.
+
+    One framed matmul for the whole batch, on the batch's device. At equal
+    rates the rows are cut or zero-padded to ``target_length``; otherwise
+    the output is cut at ``target_length`` (a shorter natural length stays
+    shorter, as in the JAX package). Shared by the STT and drift-feature
+    batch paths.
+    """
+    wavs = torch.as_tensor(wavs).to(torch.float32)
+    orig_freq, new_freq = int(orig_freq), int(new_freq)
+    if orig_freq == new_freq:
+        cur = wavs.shape[-1]
+        if cur >= target_length:
+            return wavs[..., :target_length]
+        return F.pad(wavs, (0, target_length - cur))
+    g = math.gcd(orig_freq, new_freq)
+    return _resample_core(wavs, orig_freq // g, new_freq // g, target_length)

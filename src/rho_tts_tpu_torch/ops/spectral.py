@@ -25,9 +25,9 @@ def hann_window(win_length: int, periodic: bool = True, device=None) -> torch.Te
 
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
-    """Slice a 1-D signal into overlapping frames, shape (T, frame_length)."""
+    """Slice signals (..., L) into overlapping frames, shape (..., T, frame_length)."""
     if x.shape[-1] < frame_length:
-        return x.new_zeros((0, frame_length))
+        return x.new_zeros((*x.shape[:-1], 0, frame_length))
     return x.unfold(-1, frame_length, hop)
 
 
@@ -44,9 +44,15 @@ def _padded_window(window, win_length: int, n_fft: int, device) -> torch.Tensor:
 def _pad_centre(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
     """``jnp.pad(x, (pad, pad), mode)`` with numpy's semantics, also for a
     signal shorter than the pad (reflected again at each end), which
-    ``F.pad`` refuses: a gather with numpy's own padded index."""
+    ``F.pad`` refuses: a gather with numpy's own padded index, over the
+    last axis."""
+    if mode == "constant":
+        return F.pad(x, (pad, pad))
+    if mode == "reflect" and pad < x.shape[-1]:  # a gather on the device, no index upload
+        flat = x.reshape(-1, x.shape[-1])
+        return F.pad(flat, (pad, pad), mode="reflect").reshape(*x.shape[:-1], -1)
     idx = np.pad(np.arange(x.shape[-1]), (pad, pad), mode=mode)
-    return x[torch.as_tensor(idx, device=x.device)]
+    return x[..., torch.as_tensor(idx, device=x.device)]
 
 
 def stft(
@@ -60,7 +66,7 @@ def stft(
 ) -> torch.Tensor:
     """Short-time Fourier transform matching ``torch.stft`` semantics.
 
-    Returns a complex tensor of shape (n_fft//2 + 1, num_frames).
+    ``x`` is (..., L); returns a complex tensor (..., n_fft//2 + 1, num_frames).
     """
     win_length = win_length or n_fft
     window = _padded_window(window, win_length, n_fft, x.device)
@@ -68,7 +74,7 @@ def stft(
         x = _pad_centre(x, n_fft // 2, pad_mode)
     frames = frame_signal(x, n_fft, hop_length) * window[None, :]
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
-    return spec.T  # (freq, time)
+    return spec.transpose(-1, -2)  # (..., freq, time)
 
 
 def istft(

@@ -5,7 +5,9 @@ Counterpart of ``rho_tts_tpu/providers/qwen.py``. Wraps
 :class:`~rho_tts_tpu_torch.engine.BaseTTS` engine: voice cloning with
 Base-model paths (reference audio + transcript) and named speakers with
 CustomVoice-model paths, batch generation, the 3-pass loudness
-post-processing on the device, and chunked streaming.
+post-processing on the device, chunked streaming, and the validation loop
+(the reference voice's speaker embedding is computed when a voice-clone
+model loads).
 
 Sampling draws the JAX package's bits: each model call takes a fresh key
 from the engine's threefry chain (:meth:`BaseTTS.next_rng`) and turns it
@@ -26,6 +28,8 @@ from __future__ import annotations
 
 import logging
 from typing import Dict, List, Optional, Union
+
+import numpy as np
 
 from ..engine import BaseTTS
 from ..ops import dsp
@@ -61,8 +65,8 @@ class QwenTTS(BaseTTS):
         accent_drift_threshold: Accent-drift gate (default 0.17).
         text_similarity_threshold: STT match gate (default 0.85).
         sound_decay_threshold: Min last/first RMS ratio (default 0.3).
-        drift_model_path: Explicit drift-classifier path; validation with
-            it raises until the classifier is ported (queue 1 item 8).
+        drift_model_path: Explicit drift-classifier path (overrides the
+            per-voice lookup).
         phonetic_mapping: Word-to-pronunciation overrides.
         quantization: "int8" or "int4" talker weights.
         min_audio_sec: Minimum generated duration (EOS masked below it).
@@ -152,6 +156,7 @@ class QwenTTS(BaseTTS):
 
         # Model is lazy-loaded on first generation
         self._model = None
+        self._reference_embedding_initialized = False
 
     # -- Model management ---------------------------------------------------
 
@@ -168,7 +173,25 @@ class QwenTTS(BaseTTS):
             mpe = self._model.config.max_position_embeddings
             if mpe:
                 self._max_model_chars = min(self.MAX_MODEL_CHARS, mpe)
+            if self.voice_cloning:
+                self._initialize_reference_embedding()
         return self._model
+
+    def _initialize_reference_embedding(self):
+        """Compute the reference speaker embedding for similarity checks."""
+        if self._reference_embedding_initialized:
+            return
+        try:
+            from ..audio_io import load_wav
+
+            wav, sr = load_wav(self.reference_audio_path)
+            self.reference_embedding = np.asarray(
+                self.speaker_encoder.embed_utterance(wav, sr)
+            )
+            self._reference_embedding_initialized = True
+            logger.info("Reference voice embedding computed")
+        except Exception as exc:  # noqa: BLE001 — similarity is best-effort
+            logger.warning("Speaker embedding unavailable: %s", exc)
 
     def _is_custom_voice(self) -> bool:
         """CustomVoice vs Base routing.

@@ -94,7 +94,11 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     floats = mant.view(torch.float32) - 1.0
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)
-    return torch.clamp_min(floats * span + float(lo), float(lo))
+    # XLA fuses the scale and shift into one fused multiply-add (one
+    # rounding); in float64 the f32 x f32 product is exact, so rounding the
+    # sum once to float32 gives the same bits.
+    scaled = (floats.double() * span + float(lo)).to(torch.float32)
+    return torch.clamp_min(scaled, float(lo))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

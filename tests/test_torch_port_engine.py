@@ -481,20 +481,30 @@ def test_key_chain_and_fused_fetches():
 
 
 def test_unported_validation_backends_raise(tmp_path, monkeypatch):
+    """Validation is ported: without a drift model or a Whisper checkpoint
+    every gate passes, as in the JAX package (an explicit missing model
+    path, a checkpoint-less Whisper directory); only the served path
+    (ROADMAP queue 1 item 9) still raises."""
+    from rho_tts_tpu_torch.validation import classifier as tclf
+    from rho_tts_tpu_torch.validation.stt import stt_validator as tsv
+
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv(tclf.ENV_MODEL_VAR, raising=False)
+    monkeypatch.delenv("RHO_TTS_TPU_STT_ALLOW_RANDOM", raising=False)
+    monkeypatch.setattr(tsv, "_whisper", {})
+    monkeypatch.setattr(tsv, "_whisper_failed", False)
+    tclf.clear_cache()
     tts = _fake_class(PACKAGES["port"], False)()
     tts.voice_cloning = True
+    tts.voice_id = "no-such-voice"
     assert tts._validate_accent_drift(np.zeros(10, np.float32), SR) == (0.0, True)
-    assert tts._validate_text_match(np.zeros(10, np.float32), SR, "x") == (True, 0.0, None)
     tts.drift_model_path = str(tmp_path / "drift.pkl")
+    assert tts._validate_accent_drift_batch([np.zeros(10, np.float32)], SR) == [(0.0, True)]
+    monkeypatch.setenv("RHO_TTS_TPU_WHISPER_MODEL", str(tmp_path))  # no safetensors there
+    assert tts._validate_text_match(np.zeros(10, np.float32), SR, "x") == (True, 0.0, None)
     tts.max_iterations = 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tts.generate("Hello")
-    tts.drift_model_path = None
-    monkeypatch.setenv("RHO_TTS_TPU_WHISPER_MODEL", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tts.generate("Hello")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tts._compute_speaker_similarity(np.zeros(10, np.float32))
+    out = tts.generate("Hello")
+    assert out is not None and tts.calls == ["Hello"] and out.drift_prob == 0.0
     tts.supports_serving_generation = True
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tts.generate("Hello")

@@ -141,6 +141,29 @@ def test_sampled_codes_and_waveforms_identical(fp32_params, jax_prefill_kernel, 
         np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-4, rtol=1e-4)
 
 
+def test_default_seeds_match_jax(fp32_params, jax_prefill_kernel):
+    """Without seeds both packages draw ``_derive_row_seeds(rng, n)`` from a
+    threefry key, ``PRNGKey(0)`` by default: the same codes, the same
+    waveforms (1e-4), and the same stream."""
+    from rho_tts_tpu_torch.utils import prng
+
+    jm, tm = _pair(fp32_params, None)
+    kw = dict(GEN, top_k=8)
+    for jkey, tkey in ((None, None), (jax.random.PRNGKey(5), prng.PRNGKey(5))):
+        ref = jm.generate_codes(TEXTS, rng=jkey, **kw)
+        ours = tm.generate_codes(TEXTS, rng=tkey, **kw)
+        for o, r in zip(ours, ref):
+            np.testing.assert_array_equal(o, np.asarray(r))
+    ref_wav, _ = jm.synthesize(TEXTS, **kw)
+    ours_wav, _ = tm.synthesize(TEXTS, **kw)
+    for o, r in zip(ours_wav, ref_wav):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), atol=1e-4, rtol=0)
+    ref_s = np.concatenate([np.asarray(w) for w, _ in jm.stream_chunks(TEXTS[1], **kw)])
+    ours_s = torch.cat([w for w, _ in tm.stream_chunks(TEXTS[1], **kw)]).numpy()
+    assert ours_s.shape == ref_s.shape
+    np.testing.assert_allclose(ours_s, ref_s, atol=1e-4, rtol=0)
+
+
 def test_prompt_arrays_match_jax():
     jm = JModel.__new__(JModel)
     jm.config = JPRESETS["tiny"]
