@@ -42,7 +42,14 @@ Phases, each fatal on failure:
    (two model calls, the lower-drift attempt kept), one host fetch each for
    the drift statistics and the STT ids with no host wait before them, and
    card-vs-CPU checks (see :func:`run_validate_path`). Each kernel's entry
-   gains ``launches_validate``.
+   gains ``launches_validate``;
+9. serving: ``ServingEngine`` on a 1.7B CustomVoice int8 model, 8 slots,
+   16 of bench.py's ragged requests (every other one streamed) with the
+   admission and dispatch held under ``set_sync_debug_mode("error")``,
+   beside a static batch-5 ``synthesize`` of the first 10; speculative
+   serving with a ``draft-1.7B`` draft; ``QwenTTS(serving=True)`` on phase
+   7's texts (see :func:`run_serving_path`). Each kernel's entry gains
+   ``launches_serving``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -179,8 +186,9 @@ def check_prefill(attn, gen) -> dict:
     """Prefill attention at the 1.7B main-path shape, left-padded rows, and
     the cases where the tensor-core design can go wrong: the causal skip
     with q_offset, a fully masked row, a ring of more than two key tiles,
-    the tiny preset's head shape, and unaligned rows (the SIMT path). Every
-    case runs twice and must give the same bits."""
+    the tiny preset's head shape, unaligned rows (the SIMT path), and
+    serving's admission prefills at P = 512 with 1 and 8 rows. Every case
+    runs twice and must give the same bits."""
     b, t, hq, hkv, d = 5, 128, 16, 8, 128
     pads = [0, 17, 40, 127, 128]  # last row: all keys masked
     mask = _pad_mask(t, pads)
@@ -199,9 +207,14 @@ def check_prefill(attn, gen) -> dict:
         (torch.bfloat16, 2e-2, True, None, 40, (2, 40, 4, 2, 16), 0, "tiny head shape"),
         (torch.float32, 2e-5, True, None, 40, (2, 40, 4, 2, 16), 0, "tiny head shape f32"),
         (torch.bfloat16, 2e-2, True, None, t, None, 1, "unaligned rows (SIMT)"),
+        (torch.bfloat16, 2e-2, True, None, 512, (1, 512, 16, 8, 128), 0,
+         "serving admission P=512 A=1"),
+        (torch.bfloat16, 2e-2, True, None, 512, (8, 512, 16, 8, 128), 0,
+         "serving admission P=512 A=8"),
     ):
         cb, ct, chq, chkv, cd = shape or (b, t, hq, hkv, d)
-        cmask = mask if shape is None else _pad_mask(ct, [0, ct // 3, ct][:cb])
+        pads = [0, ct // 3, ct][:cb] if cb <= 3 else [(ct * i) // cb for i in range(cb)]
+        cmask = mask if shape is None else _pad_mask(ct, pads)
         q, k, v = _attn_inputs(gen, (cb, t_q, chq, cd), (cb, ct, chkv, cd), dtype, dtype, kv_pad)
         run = lambda: attn.fused_gqa_attention(q, k, v, cmask, causal=causal, q_offset=q_offset)
         case = {"case": what, "dtype": str(dtype).split(".")[-1], "causal": causal,
@@ -244,14 +257,36 @@ def _decode_bound(q, k, mask):
                     4 * keys * q.shape[2] * q.shape[3], BF16_FLOP_PER_S)
 
 
+def ring_mask(b: int, s: int, col: int) -> torch.Tensor:
+    """Serving's ring-cache masks at write column ``col``: row 0 wrapped
+    (its older keys at higher columns than ``col``), rows 1-4 of different
+    ages, row 5 an empty slot (no valid key), row 6 a single valid key past
+    the write column, row 7 a wrapped prompt with left-pad holes."""
+    key_pos = torch.arange(s, device="cuda")
+    mask = torch.zeros((b, s), dtype=torch.bool, device="cuda")
+
+    def history(n):  # the n newest columns up to and including col, wrapping
+        return ((col - key_pos) % s) < n
+
+    mask[0] = history(s - 7)
+    for row, n in zip(range(1, 5), (1, 65, s // 3, s - 64)):
+        mask[row] = history(n)
+    mask[6] = key_pos == (col + 37) % s
+    mask[7] = history(s // 2) & ~(((col - key_pos) % s >= s // 2 - 20) & (key_pos % 3 == 0))
+    return mask[:b]
+
+
 def check_decode(dec, gen) -> dict:
     """Decode attention over the 1.7B main-path cache, and the cases where
     the split-S design can go wrong: the main path's real positions (left
     pads of a 128-slot prompt, keys past the slot masked, so whole slices are
     skipped), a row with no valid key, only the newest slot valid, an f8
-    cache at another split count, the tiny preset's head shape, and unaligned
-    rows. Every case runs twice and must give the same bits (the merge's
-    fixed order)."""
+    cache at another split count, the tiny preset's head shape, unaligned
+    rows, and serving's ring masks (:func:`ring_mask`) at the slot batch of
+    8 over the rings of phase 9 (S = 640) and of the provider's defaults
+    (S = 1,600), and at the ``draft-1.7B`` head shape (D = 64, 8 / 4 heads)
+    over the speculative ring (S = 237). Every case runs twice and must give
+    the same bits (the merge's fixed order)."""
     b, s, hq, hkv, d = 5, 384, 16, 8, 128
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     key_pos = torch.arange(s, device="cuda")[None, :]
@@ -281,6 +316,13 @@ def check_decode(dec, gen) -> dict:
         (f32, f32, 2e-5, None, (2, 72, 4, 2, 16), 0, "tiny head shape"),
         (bf, bf, 2e-2, None, (2, 72, 4, 2, 16), 0, "tiny head shape bf16"),
         (bf, bf, 2e-2, ragged, None, 1, "unaligned rows (scalar loads)"),
+        (bf, bf, 2e-2, ring_mask(8, 640, 200), (8, 640, 16, 8, 128), 0, "ring S=640"),
+        (bf, bf, 2e-2, ring_mask(8, 640, 639), (8, 640, 16, 8, 128), 0, "ring S=640 at the end"),
+        (bf, bf, 2e-2, ring_mask(8, 1600, 901), (8, 1600, 16, 8, 128), 0, "ring S=1600"),
+        (bf, f8, 2e-2, ring_mask(8, 1600, 5), (8, 1600, 16, 8, 128), 0, "ring S=1600 f8"),
+        (bf, bf, 2e-2, ring_mask(8, 237, 100), (8, 237, 8, 4, 64), 0, "draft-1.7B ring S=237"),
+        (f32, f32, 2e-5, ring_mask(8, 237, 236), (8, 237, 8, 4, 64), 0,
+         "draft-1.7B ring f32"),
     ):
         cb, cs, chq, chkv, cd = shape or (b, s, hq, hkv, d)
         if mask is None:
@@ -1443,8 +1485,309 @@ def run_validate_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> di
         clf.predict_accent_drift_probability_batch = inner_probs
         for k, v in saved_env.items():
             _restore_env(k, v)
+        # Later phases run with phase 7's gate: no Whisper checkpoint, STT off.
+        sv._whisper.clear()
+        sv._whisper_failed = False
     tts.close()
     clf.clear_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: continuous-batching serving at full width
+# ---------------------------------------------------------------------------
+
+# bench.py's serving workload (its bench_serve): 24 requests of ragged
+# lengths pinned by min_frames == max_frames, 8 slots, top-k 4 at 0.9. Cut
+# to the first 16 requests for the script's time limit.
+SERVE_DRAWN, SERVE_REQUESTS = 24, 16
+SERVE_LENGTHS = (128, 192, 256, 384, 512)
+SERVE_TEXT = "Serving request number {} with a ragged target length."
+
+
+def _guard_sync(obj, names):
+    """Run each method ``names`` of ``obj`` under ``set_sync_debug_mode("error")``:
+    any host wait inside raises. Returns a function that restores them."""
+    saved = {}
+    for name in names:
+        inner = saved[name] = getattr(obj, name)
+
+        def guarded(*args, _inner=inner, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _inner(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        setattr(obj, name, guarded)
+    return lambda: [delattr(obj, name) for name in saved]
+
+
+def _drive(eng, texts, lengths, stream_every=0, temperature=0.9, seeds=None):
+    """Submit one request per (text, length), pinned to its length; every
+    ``stream_every``-th one (from the second) streamed; drive the engine in
+    this thread until idle. Returns the requests and the wall seconds to the
+    last waveform on the card."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(t, min_frames=n, max_frames=n, temperature=temperature,
+                       stream=bool(stream_every) and i % stream_every == 1,
+                       seed=None if seeds is None else seeds[i])
+            for i, (t, n) in enumerate(zip(texts, lengths))]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def _percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dict:
+    """Phase 9: ``ServingEngine`` at full width through the hand kernels.
+
+    a. 1.7B CustomVoice int8 (random weights), ``ServingEngine(n_slots=8,
+       max_prompt=64, max_frames=512, top_k=4)``: 2 requests to warm up,
+       then 16 of bench.py's ragged requests at temperature 0.9, every
+       other one streamed, timed, with the admission and the dispatch under
+       ``set_sync_debug_mode("error")`` (the lagged done-flag read is the
+       only wait); the first 10 once more through ``synthesize`` in batches
+       of 5, as the static comparison;
+    b. speculative serving: a ``draft-1.7B`` draft (random weights), gamma
+       4, residual mode "draft", 8 requests of 128 frames; and the
+       single-stream speculative decode of one request of 128 frames;
+    c. ``QwenTTS(serving=True)``: phase 7's 5 texts to WAV files;
+    d. reported, not fatal: greedy served codes against ``generate_codes``
+       for 3 requests.
+    """
+    import numpy as np
+
+    from rho_tts_tpu_torch import TTSFactory, serving
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = qmodel.QwenTTSModel.from_pretrained("Qwen3-TTS-12Hz-1.7B-CustomVoice",
+                                                quantization="int8", device="cuda")
+    cfg = model.config
+    layers, hop, fr = cfg.talker.layers, cfg.codec.hop, cfg.codec.frame_rate
+    chunk = qmodel._chunk()
+    lengths = np.random.default_rng(0).choice(SERVE_LENGTHS, size=SERVE_DRAWN).tolist()
+    lengths = [int(n) for n in lengths[:SERVE_REQUESTS]]
+    texts = [SERVE_TEXT.format(i) for i in range(SERVE_REQUESTS)]
+    out = {"card": smi, "preset": cfg.name, "quantization": model.quantization,
+           "requests": SERVE_REQUESTS,
+           "cut": f"{SERVE_DRAWN} requests of bench.py's serving workload cut to the first "
+                  f"{SERVE_REQUESTS} for time", "lengths": lengths}
+    log(f"phase 9 ({smi}): serving {SERVE_REQUESTS} requests (bench.py draws {SERVE_DRAWN}; "
+        f"cut for time), lengths {lengths}")
+
+    # -- a. the slot batch ------------------------------------------------
+    eng = serving.ServingEngine(model, n_slots=8, max_prompt=64, max_frames=512, top_k=4)
+    t0 = time.perf_counter()
+    _drive(eng, texts[:2], [128, 128], stream_every=2)  # warm-up
+    warm_s = time.perf_counter() - t0
+    events = []
+    inner_chunk = serving._serve_decode_chunk
+
+    def timed_chunk(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inner_chunk(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return res
+
+    serving._serve_decode_chunk = timed_chunk
+    restore = _guard_sync(eng, ("_admit", "_dispatch"))
+    for mod in kmods.values():
+        mod.launches = 0
+    dispatches0, admissions0, frames0 = eng.dispatches, eng.admissions, eng.frames_delivered
+    try:
+        reqs, wall = _drive(eng, texts, lengths, stream_every=2)
+    finally:
+        serving._serve_decode_chunk = inner_chunk
+        restore()
+    launches = {name: mod.launches for name, mod in kmods.items()}
+    try:  # the positive control: the mode catches a fetch
+        torch.cuda.set_sync_debug_mode("error")
+        torch.zeros(1, device="cuda").sum().item()
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dispatches, admissions = eng.dispatches - dispatches0, eng.admissions - admissions0
+    steps = dispatches * chunk
+    want = {"prefill_gqa_attention": layers * admissions,
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+    if not caught or launches != want:
+        raise AssertionError(f"serving: launches {launches} vs {want}; sync check live {caught}")
+    for i, (r, n) in enumerate(zip(reqs, lengths)):
+        wav, sr = r.result(timeout=60)
+        if r.n_frames != n or wav.shape != (n * hop,) or not bool(torch.isfinite(wav).all()):
+            raise AssertionError(f"serving request {i}: {r.n_frames} frames of {n}, "
+                                 f"{tuple(wav.shape)}")
+        if r.stream:
+            pieces = [p for p, _sr in r.chunks(timeout=60)]
+            if len(pieces) < min(2, n // chunk) or not torch.equal(torch.cat(pieces), wav):
+                raise AssertionError(f"serving request {i}: {len(pieces)} streamed pieces "
+                                     "do not concatenate to the result")
+    audio_s = sum(lengths) / fr
+    lat = [r.t_done - r.t_submit for r in reqs]
+    ttfa = [r.t_first_audio - r.t_submit for r in reqs if r.stream]
+    chunk_ms = [s_.elapsed_time(e) for s_, e in events]
+    out["a_slot_batch"] = {
+        "n_slots": 8, "ring": eng.ring, "warmup_s": warm_s, "wall_s": wall,
+        "audio_s": audio_s, "aggregate_rtf": audio_s / wall,
+        "engine_stats": eng.stats(), "frames_delivered": eng.frames_delivered - frames0,
+        "latency_p50_s": _percentile(lat, 50), "latency_p99_s": _percentile(lat, 99),
+        "ttfa_streamed_p50_s": _percentile(ttfa, 50), "ttfa_streamed_max_s": max(ttfa),
+        "dispatches": dispatches, "admission_groups": admissions, "decode_steps": steps,
+        "decode_ms_per_chunk": sum(chunk_ms) / len(chunk_ms),
+        "decode_ms_per_step": sum(chunk_ms) / (len(chunk_ms) * chunk),
+        "launches": launches, "host_waits_in_dispatch": 0,
+        "streamed_pieces_concatenate_to_result": True,
+    }
+    log(f"phase 9 a_slot_batch ({smi}): {json.dumps(out['a_slot_batch'])}")
+    eng.close()
+
+    t0 = time.perf_counter()
+    for i in range(0, 10, 5):
+        mx = max(lengths[i:i + 5])
+        model.synthesize(texts[i:i + 5], min_frames=mx, max_frames=mx, top_k=4,
+                         temperature=0.9, seeds=list(range(i, i + 5)))
+    torch.cuda.synchronize()
+    static_wall = time.perf_counter() - t0
+    static_audio = sum(lengths[:10]) / fr  # the requested audio, without the padding
+    out["a_static_batch5"] = {"requests": 10, "wall_s": static_wall, "audio_s": static_audio,
+                              "rtf": static_audio / static_wall}
+    log(f"phase 9 a_static_batch5 ({smi}): {json.dumps(out['a_static_batch5'])}")
+
+    # -- d. greedy served codes against generate_codes (reported) ----------
+    geng = serving.ServingEngine(model, n_slots=8, max_prompt=64, max_frames=128, top_k=1)
+    greqs, _ = _drive(geng, texts[:3], [128] * 3, temperature=1.0)
+    one = model.generate_codes(texts[:3], min_frames=128, max_frames=128, temperature=1.0,
+                               top_k=1)
+    parity = []
+    for r, o in zip(greqs, one):
+        n = min(len(o), r.n_frames)
+        eq = r.codes[:n] == o[:n]
+        rows_eq = eq.all(axis=1)
+        parity.append({"frames": n, "equal_share": float(rows_eq.mean()),
+                       "first_difference": None if rows_eq.all() else int(np.argmin(rows_eq))})
+    out["d_greedy_vs_generate_codes"] = {
+        "required": False, "requests": parity,
+        "why": "a ring of another length splits the decode kernel's keys otherwise, so bf16 "
+               "near-ties can round apart; exact parity is the CPU tests' job"}
+    log(f"phase 9 d_greedy_vs_generate_codes ({smi}): "
+        f"{json.dumps(out['d_greedy_vs_generate_codes'])}")
+    geng.close()
+
+    # -- b. speculative serving ----------------------------------------------
+    draft = qmodel.QwenTTSModel(qmodel.PRESETS["draft-1.7B"], seed=1, device="cuda")
+    seng = serving.ServingEngine(model, n_slots=8, max_prompt=64, max_frames=128, top_k=4,
+                                 draft_model=draft, gamma=4, residual_mode="draft")
+    t0 = time.perf_counter()
+    _drive(seng, texts[:2], [64, 64])  # warm-up
+    swarm = time.perf_counter() - t0
+    for mod in kmods.values():
+        mod.launches = 0
+    rounds0, adm0 = seng.spec_rounds, seng.admissions
+    sreqs, swall = _drive(seng, texts[:8], [128] * 8)
+    slaunches = {name: mod.launches for name, mod in kmods.items()}
+    rounds = seng.spec_rounds - rounds0
+    dlayers = draft.config.talker.layers
+    swant = {"prefill_gqa_attention": (layers + dlayers) * (seng.admissions - adm0),
+             "decode_gqa_attention": dlayers * (seng.gamma + 1) * rounds,
+             "w8a8_matmul": 0, "int4_matmul": 0}
+    frames = sum(r.n_frames for r in sreqs)
+    if slaunches != swant or frames != 8 * 128 or not all(
+            bool(torch.isfinite(r.result(timeout=60)[0]).all()) for r in sreqs):
+        raise AssertionError(f"speculative serving: {frames} frames, launches {slaunches} vs "
+                             f"{swant}")
+    out["b_speculative"] = {
+        "draft": "draft-1.7B (random weights)", "gamma": 4, "residual_mode": "draft",
+        "requests": 8, "frames": frames, "warmup_s": swarm, "wall_s": swall,
+        "rounds": rounds, "frames_per_round": frames / rounds,
+        "frames_per_round_per_slot": frames / rounds / 8,
+        "rtf": frames / fr / swall, "launches": slaunches,
+        "note": "a random draft makes acceptance meaningless: this prices the round's "
+                "mechanics, not speculation's gain"}
+    log(f"phase 9 b_speculative ({smi}): {json.dumps(out['b_speculative'])}")
+    seng.close()
+
+    # single-stream speculative decode (QwenTTS(draft_model_path=...)'s route)
+    from rho_tts_tpu_torch.models.qwen.speculative import CHECK_EVERY, speculative_generate_codes
+
+    speculative_generate_codes(model, draft, texts[0], max_frames=64, min_frames=64, gamma=4)
+    for mod in kmods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    codes, stats = speculative_generate_codes(model, draft, texts[1], max_frames=128,
+                                              min_frames=128, gamma=4)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_launches = {name: mod.launches for name, mod in kmods.items()}
+    # The host reads the loop condition once every CHECK_EVERY rounds: up to
+    # CHECK_EVERY - 1 rounds after the last live one run masked.
+    dispatched = min(-(-stats["rounds"] // CHECK_EVERY) * CHECK_EVERY, 128)
+    one_want = {"prefill_gqa_attention": layers + dlayers,
+                "decode_gqa_attention": dlayers * 5 * dispatched,
+                "w8a8_matmul": 0, "int4_matmul": 0}
+    # (the codes stop at a sampled special token, as in the JAX package)
+    if stats["emitted"] != 128 or one_launches != one_want:
+        raise AssertionError(f"single-stream speculative decode: {codes.shape} codes, "
+                             f"launches {one_launches} vs {one_want}")
+    out["b_single_stream"] = {"frames_before_a_special_token": int(codes.shape[0]),
+                              "wall_s": one_wall, "rtf": stats["emitted"] / fr / one_wall,
+                              "rounds_dispatched": dispatched, **stats,
+                              "launches": one_launches}
+    log(f"phase 9 b_single_stream ({smi}): {json.dumps(out['b_single_stream'])}")
+    del draft, seng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- c. QwenTTS(serving=True) ---------------------------------------------
+    min_audio_sec = 1000.0  # EOS masked: every request decodes its max_frames
+    tts = TTSFactory.get_tts_instance(
+        "qwen", speaker="Vivian", model_path="Qwen3-TTS-12Hz-1.7B-CustomVoice",
+        quantization="int8", device="cuda", min_audio_sec=min_audio_sec, serving=True)
+    tts.silence_threshold_db = SILENCE_DB
+    tts._load_model()
+    out_dir = os.path.join(build_dir, "phase9")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    tts.generate(TEXTS, output_path=os.path.join(out_dir, "warm"))
+    torch.cuda.synchronize()
+    cwarm = time.perf_counter() - t0
+    engine = tts._serving
+    for mod in kmods.values():
+        mod.launches = 0
+    d0, a0 = engine.dispatches, engine.admissions
+    t0 = time.perf_counter()
+    results = tts.generate(TEXTS, output_path=os.path.join(out_dir, "out"))
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    claunches = {name: mod.launches for name, mod in kmods.items()}
+    cwant = {"prefill_gqa_attention": layers * (engine.admissions - a0),
+             "decode_gqa_attention": layers * chunk * (engine.dispatches - d0),
+             "w8a8_matmul": 0, "int4_matmul": 0}
+    if not isinstance(results, list) or len(results) != len(TEXTS) or None in results \
+            or claunches != cwant or not all(bool(torch.isfinite(r.audio).all()) and
+                                             os.path.exists(r.path) for r in results):
+        raise AssertionError(f"served generate(): {results!r}, launches {claunches} vs {cwant}")
+    caudio = sum(r.duration_sec for r in results)
+    out["c_served_generate"] = {
+        "ring": engine.ring, "warmup_s": cwarm, "generate_wall_s": cwall, "audio_s": caudio,
+        "rtf": caudio / cwall, "phase7_generate_wall_s": gen7["generate_wall_s"],
+        "phase7_audio_s": gen7["audio_s"], "dispatches": engine.dispatches - d0,
+        "launches": claunches}
+    log(f"phase 9 c_served_generate ({smi}): {json.dumps(out['c_served_generate'])}")
+    tts.close()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = launches
     return out
 
 
@@ -1527,6 +1870,10 @@ def main(argv=None) -> int:
     log(f"phase 7 generate(): {json.dumps(gen_path)}")
     val_path = run_validate_path(qmodel, kmods, build_dir, smi, gen_path)
     log(f"phase 8 validate(): {json.dumps(val_path)}")
+    t0 = time.perf_counter()
+    serve_path = run_serving_path(qmodel, kmods, build_dir, smi, gen_path)
+    log(f"phase 9 serving: every part passed in {time.perf_counter() - t0:.1f} s, peak "
+        f"{serve_path['peak_mem_gb']:.2f} GB")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -1538,6 +1885,10 @@ def main(argv=None) -> int:
         k["launches_generate"] = gen_path["launches"][k["name"]]
         k["launches_validate"] = {"a": val_path["a_permissive"]["launches"][k["name"]],
                                   "b": val_path["b_every_segment_fails"]["launches"][k["name"]]}
+        k["launches_serving"] = {
+            "slot_batch": serve_path["a_slot_batch"]["launches"][k["name"]],
+            "speculative": serve_path["b_speculative"]["launches"][k["name"]],
+            "served_generate": serve_path["c_served_generate"]["launches"][k["name"]]}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -25,8 +25,11 @@ on the waveform's device, saving, the async wrapper and the streaming API.
   pass on the waveforms' device, then its transcription; the text match is
   called after the drift gate, in line (the JAX package transcribes on a
   worker thread meanwhile, with the same results).
-* The continuous-batching served path (``serving=True``) waits for the
-  serving engine (ROADMAP queue 1 item 9).
+* The continuous-batching served path (``supports_serving_generation``):
+  every segment is a request of the provider's ``ServingEngine``
+  (``serving.py``), validated as it retires; a failed segment resubmits
+  at once and rejoins the running slot batch. Its text match runs after
+  the drift gate, in line, as in the batched path.
 
 Public semantics parity with reference ``base_tts.py``: generate :960-1101,
 _run_pipeline :708-956, stream :1132-1190, async_generate :1105-1128.
@@ -89,8 +92,10 @@ class BaseTTS(ABC):
     #: ``base_tts.py:770-898`` with chatterbox max_iterations=50).
     candidates_per_iteration = 1
 
-    #: The continuous-batching served path of the JAX package; it waits for
-    #: the serving engine (ROADMAP queue 1 item 9), so True raises.
+    #: Providers backed by a continuous-batching serving engine set this
+    #: True (instance attribute) and implement ``_serving_submit``: the
+    #: pipeline then submits every segment as a serving request and
+    #: validates segments as they retire (:meth:`_generate_segments_served`).
     supports_serving_generation = False
 
     def __init__(
@@ -703,6 +708,221 @@ class BaseTTS(ABC):
 
         return best, best_drift, best_sim
 
+    # -- Serving-backed segment generation --------------------------------------
+
+    def _serving_submit(self, text: str):
+        """Submit one segment to the provider's continuous-batching serving
+        engine; returns a :class:`rho_tts_tpu_torch.serving.ServeRequest`-like
+        future (``add_done_callback`` / ``wav`` / ``error`` / ``cancel``).
+        Providers that set ``supports_serving_generation`` implement this."""
+        raise NotImplementedError
+
+    def _generate_segments_served(
+        self,
+        segments: List[str],
+        token: CancellationToken,
+        progress_callback: Optional[Callable[[str], None]] = None,
+    ):
+        """Generate + validate segments through the serving engine.
+
+        The contract and gate semantics of :meth:`_generate_segments_batched`
+        (drift gate with best-by-drift tracking, auto-sort, max_iterations
+        cap, best/last fallback), without an iteration barrier: every segment
+        is a serving request, validated as it retires; a failed segment
+        resubmits at once and joins the in-flight slot batch. Retries draw
+        fresh per-request seeds from the serving engine.
+        """
+        import queue as _q
+
+        n = len(segments)
+        best: List = [None] * n
+        final: List[bool] = [False] * n
+        best_drift = [float("inf")] * n
+        best_sim: List[Optional[float]] = [None] * n
+        last: List = [None] * n
+        tries = [0] * n
+
+        self._set_seeds()
+        done_q: "_q.Queue[int]" = _q.Queue()
+        inflight: Dict[int, object] = {}
+
+        def submit(i: int) -> None:
+            tries[i] += 1
+            req = self._serving_submit(segments[i])
+            inflight[i] = req
+            req.add_done_callback(lambda _r, i=i: done_q.put(i))
+
+        def cancel_inflight() -> None:
+            for req in inflight.values():
+                try:
+                    req.cancel()
+                except Exception:  # noqa: BLE001
+                    pass
+
+        if progress_callback:
+            progress_callback(f"Generating {n} segment(s) (serving)...")
+        try:
+            self._served_loop(
+                segments, token, progress_callback, done_q, inflight, submit,
+                best, final, best_drift, best_sim, last, tries,
+            )
+        except BaseException:
+            cancel_inflight()
+            raise
+
+        # Segments that never produced audio keep best=None; segments that
+        # exhausted retries already carry best-by-drift (else last audio).
+        for i in range(n):
+            if final[i] or best[i] is not None:
+                continue
+            if last[i] is not None:
+                best[i] = last[i]
+        return best, best_drift, best_sim
+
+    def _served_loop(
+        self, segments, token, progress_callback, done_q, inflight, submit,
+        best, final, best_drift, best_sim, last, tries,
+    ):
+        """Completion-driven retry loop of :meth:`_generate_segments_served`."""
+        import queue as _q
+
+        n = len(segments)
+        for i in range(n):
+            submit(i)
+
+        validate = self.max_iterations > 1
+        auto_sort = bool(
+            getattr(self, "auto_sort_good_dir", None)
+            or getattr(self, "auto_sort_bad_dir", None)
+        )
+
+        while inflight:
+            if token.is_cancelled():
+                raise CancelledException("Cancelled during served generation")
+            try:
+                ready = [done_q.get(timeout=0.2)]
+            except _q.Empty:
+                continue
+            # Coalesce the rest of this retire burst into one validation
+            # batch (retirements arrive grouped at chunk boundaries).
+            deadline = time.time() + 0.01
+            while True:
+                try:
+                    ready.append(done_q.get(timeout=max(deadline - time.time(), 0)))
+                except _q.Empty:
+                    break
+            if token.is_cancelled():
+                raise CancelledException("Cancelled during served generation")
+
+            group: List[int] = []  # segments with fresh audio to validate
+            for i in ready:
+                req = inflight.pop(i)
+                err = getattr(req, "error", None)
+                if err is not None:
+                    if isinstance(err, ValueError):
+                        raise err  # config error — don't retry
+                    logger.warning(f"    Segment {i + 1}: generation error ({err})")
+                    if tries[i] < self.max_iterations:
+                        submit(i)
+                    continue
+                audio = req.wav
+                if audio is None or getattr(req, "cancelled", False):
+                    logger.warning(f"    Segment {i + 1}: no audio from serving")
+                    if tries[i] < self.max_iterations:
+                        submit(i)
+                    continue
+                last[i] = audio
+                if not validate:
+                    best[i] = audio
+                    final[i] = True
+                    if auto_sort:
+                        try:
+                            drift_prob, _ = self._validate_accent_drift(audio, self.sample_rate)
+                            self._auto_sort_audio(audio, drift_prob)
+                        except Exception as e:  # noqa: BLE001
+                            logger.warning(f"    Auto-sort drift check failed ({e})")
+                    continue
+                group.append(i)
+            if not group:
+                continue
+
+            if progress_callback:
+                done_ct = sum(final) + sum(
+                    1 for i in range(n) if best[i] is not None and not final[i]
+                )
+                progress_callback(
+                    f"Validating {len(group)} segment(s) ({done_ct}/{n} settled)..."
+                )
+
+            drift_results = None
+            try:
+                with profiling.stage("validate/drift"):
+                    drift_results = self._validate_accent_drift_batch(
+                        [last[i] for i in group], self.sample_rate
+                    )
+            except Exception as e:  # noqa: BLE001
+                logger.warning(f"    Batched drift validation error ({e})")
+
+            voice_ok_idx: List[int] = []
+            failed: List[int] = []
+            for pos, i in enumerate(group):
+                audio = last[i]
+                try:
+                    if drift_results is not None:
+                        drift_prob, is_voice_ok = drift_results[pos]
+                    else:
+                        drift_prob, is_voice_ok = self._validate_accent_drift(
+                            audio, self.sample_rate
+                        )
+                    self._auto_sort_audio(audio, drift_prob)
+                    if drift_prob < best_drift[i]:
+                        best_drift[i] = drift_prob
+                        best[i] = audio
+                    if is_voice_ok:
+                        voice_ok_idx.append(i)
+                    else:
+                        logger.warning(f"    Segment {i + 1} invalid: drift={drift_prob:.3f}")
+                        failed.append(i)
+                except Exception as e:  # noqa: BLE001
+                    logger.warning(f"    Segment {i + 1}: validation error ({e})")
+                    failed.append(i)
+
+            # The text match of the drift-passing segments, as one batch, in
+            # line (the JAX package transcribes the whole group on a worker
+            # thread meanwhile and keeps these segments' results).
+            if voice_ok_idx:
+                try:
+                    with profiling.stage("validate/stt"):
+                        stt_results = self._validate_text_match_batch(
+                            [last[i] for i in voice_ok_idx], self.sample_rate,
+                            [segments[i] for i in voice_ok_idx],
+                        )
+                except Exception as e:  # noqa: BLE001
+                    logger.warning(f"    Batched STT validation error ({e})")
+                    stt_results = [(True, 1.0, None)] * len(voice_ok_idx)
+                for i, (is_text_ok, text_sim, transcribed) in zip(voice_ok_idx, stt_results):
+                    best_sim[i] = text_sim
+                    if is_text_ok:
+                        best[i] = last[i]
+                        final[i] = True
+                    else:
+                        if transcribed:
+                            try:
+                                self._log_text_diff(segments[i], transcribed)
+                            except Exception:  # noqa: BLE001
+                                pass
+                        logger.warning(f"    Segment {i + 1} invalid: text={text_sim:.3f}")
+                        failed.append(i)
+
+            for i in failed:
+                if tries[i] < self.max_iterations:
+                    submit(i)
+                else:
+                    logger.warning(
+                        f"    Segment {i + 1}: max iterations reached, "
+                        f"returning best available audio"
+                    )
+
     # -- Candidate-batched retry loop -------------------------------------------
 
     def _generate_audio_candidates(self, text: str, k: int) -> List:
@@ -1002,9 +1222,12 @@ class BaseTTS(ABC):
                 flat.extend(items_segments[i])
                 spans.append((i, len(items_segments[i])))
 
-            audios, pos_drift, pos_sim = self._generate_segments_batched(
-                flat, token, progress_callback
+            gen_segments = (
+                self._generate_segments_served
+                if self.supports_serving_generation
+                else self._generate_segments_batched
             )
+            audios, pos_drift, pos_sim = gen_segments(flat, token, progress_callback)
 
             pos = 0
             next_active = []
@@ -1090,12 +1313,10 @@ class BaseTTS(ABC):
 
         logger.info(f"Generating audio for {len(mapped_texts)} text item(s)...")
 
-        if self.supports_serving_generation:
-            raise NotImplementedError(
-                "the continuous-batching served path needs the serving engine (serving.py), "
-                "not ported yet: ROADMAP queue 1 item 9"
-            )
-        if self.supports_batch_generation:
+        # Serving-backed providers take the batched-items path too: its
+        # segment generation goes through _serving_submit (the slot batch),
+        # never through a list-mode _generate_audio call.
+        if self.supports_batch_generation or self.supports_serving_generation:
             return self._run_pipeline_batched_items(
                 mapped_texts, token, progress_callback
             )

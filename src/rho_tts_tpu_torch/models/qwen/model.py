@@ -165,11 +165,15 @@ def _gumbel_noise(seeds: torch.Tensor, frames: torch.Tensor, top_k: int) -> torc
     return prng.gumbel(keys, (top_k,))
 
 
-def _sample_with_noise(logits, temperature: float, top_k: int, noise):
+def _sample_with_noise(logits, temperature, top_k: int, noise):
+    """``temperature`` is a number, or a ``(B,)`` tensor of per-row values."""
     # A tensor divisor, not a Python scalar: division by a scalar may run as
     # a multiplication by its reciprocal, which rounds differently.
-    t = torch.full((1, 1), max(float(np.float32(temperature)), float(np.float32(1e-5))),
-                   dtype=torch.float32, device=logits.device)
+    if isinstance(temperature, torch.Tensor):
+        t = temperature.float().clamp_min(float(np.float32(1e-5)))[:, None]
+    else:
+        t = torch.full((1, 1), max(float(np.float32(temperature)), float(np.float32(1e-5))),
+                       dtype=torch.float32, device=logits.device)
     logits = logits.float() / t
     vals, idxs = torch.topk(logits, top_k, dim=-1)
     choice = torch.argmax(vals + noise, dim=-1)
@@ -180,7 +184,8 @@ def _sample_token_seeded(logits, seeds, frames, temperature, top_k: int):
     """Schedule-reproducible top-k Gumbel sampling.
 
     Row ``i``'s noise is a pure function of ``(seeds[i], frames[i])``, bit
-    for bit the JAX package's; ``top_k=1`` is exact greedy.
+    for bit the JAX package's; ``top_k=1`` is exact greedy. ``temperature``
+    is a number or a ``(B,)`` tensor.
     """
     return _sample_with_noise(logits, temperature, top_k, _gumbel_noise(seeds, frames, top_k))
 
@@ -262,7 +267,11 @@ def _vocode(params, cfg, codes):
 
 
 def _vocode_rows(params, cfg, codes_buf, rows, ends, t: int):
-    """Vocode ``codes_buf[rows, :t]`` with frames >= ``ends`` zeroed -> wav (G, t*hop)."""
+    """Vocode ``codes_buf[rows, :t]`` with frames >= ``ends`` zeroed.
+
+    Returns (wav (G, t*hop), the masked codes (G, t, nq)); the latter backs
+    the serving engine's lazy code fetches.
+    """
     f = codes_buf.shape[1]
     te = min(t, f)
     codes = codes_buf[rows, :te]
@@ -270,7 +279,7 @@ def _vocode_rows(params, cfg, codes_buf, rows, ends, t: int):
         codes = F.pad(codes, (0, 0, 0, t - te))
     mask = torch.arange(t, device=codes.device)[None, :] < ends[:, None]
     codes = torch.where(mask[..., None], codes, 0)
-    return _vocode(params, cfg, codes)
+    return _vocode(params, cfg, codes), codes
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +665,7 @@ class QwenTTSModel(nn.Module):
             buckets.setdefault(_round_up(end, _chunk()), []).append(i)
         for t, idxs in buckets.items():
             with profiling.stage("qwen/vocode"):
-                wav = _vocode_rows(
+                wav, _ = _vocode_rows(
                     self.params, self.config, codes_dev,
                     torch.as_tensor(idxs, dtype=torch.int64).to(self.device),
                     torch.as_tensor([ends[i] for i in idxs], dtype=torch.int64).to(self.device),
@@ -666,11 +675,40 @@ class QwenTTSModel(nn.Module):
                 waves[i] = wav[row, : ends[i] * hop]
         return waves, self.sample_rate
 
+    @torch.inference_mode()
+    def synthesize_speculative(self, text: str, draft: "QwenTTSModel",
+                               speaker: Optional[str] = None, language: str = "English",
+                               ref_audio: Optional[str] = None, ref_text: Optional[str] = None,
+                               max_frames: Optional[int] = None, min_frames: int = 0,
+                               gamma: int = 4, rng: Optional[torch.Tensor] = None,
+                               residual_mode: str = "draft") -> Tuple[torch.Tensor, int]:
+        """Single-stream synthesis with draft-verify speculative decoding.
+
+        ``draft`` is a smaller model sharing the codec vocabulary; ``rng`` a
+        threefry key ``(2,)``. Returns (waveform (T,) on the device, sr).
+        See :mod:`rho_tts_tpu_torch.models.qwen.speculative` for the decode
+        and the ``residual_mode`` acceptance semantics.
+        """
+        from .speculative import speculative_generate_codes
+
+        codes, _stats = speculative_generate_codes(
+            self, draft, text, speaker=speaker, language=language, ref_audio=ref_audio,
+            ref_text=ref_text, max_frames=max_frames, min_frames=min_frames, gamma=gamma,
+            rng=rng, residual_mode=residual_mode,
+        )
+        hop = self.config.codec.hop
+        t = _round_up(max(codes.shape[0], 1), _chunk())
+        batch = np.pad(codes, ((0, t - codes.shape[0]), (0, 0)))[None].astype(np.int64)
+        with profiling.stage("qwen/vocode"):
+            wav = _vocode(self.params, self.config, torch.from_numpy(batch).to(self.device))
+        return wav[0, : codes.shape[0] * hop], self.sample_rate
+
     # -- Single-stream streaming --------------------------------------------
 
     def _single_prefill(self, text, speaker, language, ref_audio, ref_text, decode_slots: int):
         """B=1 prompt build + prefill with ``decode_slots`` free cache slots.
 
+        Shared by the streaming and speculative single-stream paths.
         Returns dict(logits (1, V), ck, cv, kv, p, len0).
         """
         cfg = self.config

@@ -6,14 +6,17 @@ RMSNorm and a SwiGLU MLP, f32 softmax over bf16 weights. Parameters are
 nested dicts of tensors with the reference's names; the per-layer weights
 are stacked ``(L, ...)`` as in ``init_stack``.
 
-This slice ports the cached path that prefill and decode use: the
-batch-uniform slot write with ``slot_causal=True``. Attention goes through
-the port's kernels: a prefill into an empty cache (T > 1) runs
-``ops.cuda.attention.fused_gqa_attention`` over the fresh q/k/v, and a
-decode step (T == 1) runs ``ops.cuda.decode_attention.decode_gqa_attention``
-over the cache with the complete ``key_valid & (key_pos <= slot)`` mask. On
+The cached path is ported with the modes serving uses: a batch-uniform
+or per-row (``(B,)``) write slot, ``slot_causal=False`` for ring caches and
+``block_causal`` for speculative verify. Attention goes through the port's
+kernels: a prefill into an empty cache (T > 1) runs
+``ops.cuda.attention.fused_gqa_attention`` over the fresh q/k/v, and every
+T == 1 step runs ``ops.cuda.decode_attention.decode_gqa_attention`` over
+the cache with the complete ``(B, S)`` mask, built once per forward. On
 CUDA tensors those are the hand-written kernels; on CPU tensors, their
-plain versions.
+plain versions. A T > 1 forward over a used cache (speculative verify) is
+plain masked attention, as in the JAX package, whose einsum branch computes
+it outside any Pallas kernel.
 
 Unlike the JAX package, the stacked caches are updated IN PLACE: the
 caller's ``(L, B, S, Hkv, D)`` tensors are written and returned.
@@ -136,8 +139,64 @@ def _split_qkv(qkv: torch.Tensor, cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
-# Cached block forward (prefill and single-step decode)
+# Cached block forward (prefill, decode, ring and speculative writes)
 # ---------------------------------------------------------------------------
+
+
+def scatter_rows(buf: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> None:
+    """``buf[b, cols[b, j]] = vals[b, j]`` in place, dropping the rest.
+
+    ``buf`` ``(B, S, ...)``, ``cols`` ``(B, T)``, ``vals`` ``(B, T, ...)``.
+    Entries outside ``[0, S)`` or not in ``keep`` are dropped, as JAX's
+    ``.at[...].set(..., mode="drop")`` drops them, without a host wait: a
+    dropped entry writes the row's first kept entry again (the same index
+    and the same value), or, in a row with none, the row's last column its
+    own value back. Clamping instead would overwrite a live column.
+    """
+    b, t = cols.shape
+    s = buf.shape[1]
+    ok = (cols >= 0) & (cols < s)
+    if keep is not None:
+        ok = ok & keep
+    if buf.dtype == torch.float8_e4m3fn:  # moved as bytes
+        buf, vals = buf.view(torch.uint8), vals.view(torch.uint8)
+    rows = torch.arange(b, device=cols.device)
+    any_ok = ok.any(dim=1)
+    first = ok.to(torch.int32).argmax(dim=1)  # the first kept entry
+    tail = (1,) * (vals.dim() - 2)
+    first_col = torch.where(any_ok, cols[rows, first], s - 1)
+    first_val = torch.where(any_ok.view(b, *tail), vals[rows, first], buf[:, s - 1])
+    tgt = torch.where(ok, cols, first_col[:, None])
+    src = torch.where(ok.view(b, t, *tail), vals, first_val[:, None])
+    buf[rows[:, None].expand(b, t), tgt] = src
+
+
+def _kv_compute_dtype(kv: torch.Tensor):
+    """JAX's ``_kv_compute_dtype``: f8 caches compute in bf16, others in f32."""
+    return torch.bfloat16 if kv.dtype == torch.float8_e4m3fn else torch.float32
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B,Tq,Hq,D) x (B,Tk,Hkv,D) -> (B,Hq,Tq,Tk) f32, as JAX's ``_gqa_scores``:
+    both operands rounded to the compute dtype, products summed in f32."""
+    b, tq, hq, d = q.shape
+    hkv = k.shape[2]
+    ct = _kv_compute_dtype(k)
+    qg = q.reshape(b, tq, hkv, hq // hkv, d).to(ct).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(ct).float())
+    return scores.reshape(b, hq, tq, k.shape[1])
+
+
+def _gqa_mix(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B,Hq,Tq,Tk) x (B,Tk,Hkv,D) -> (B,Tq,Hq,D) f32, as JAX's ``_gqa_mix``
+    (an f8 cache rounds the probabilities to bf16)."""
+    b, hq, tq, tk = probs.shape
+    hkv = v.shape[2]
+    ct = _kv_compute_dtype(v)
+    pg = probs.reshape(b, hkv, hq // hkv, tq, tk).to(ct).float()
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pg, v.to(ct).float())
+    return out.reshape(b, tq, hq, v.shape[3])
 
 
 def _block_forward_cached(
@@ -148,11 +207,16 @@ def _block_forward_cached(
     ck_all: torch.Tensor,  # (L, B, S, Hkv, D), written in place
     cv_all: torch.Tensor,
     layer: int,
-    slot: int,  # batch-uniform write slot
+    slot,  # int (batch-uniform) or (B,) tensor of per-row write columns
     attn_mask: Optional[torch.Tensor],  # (B, T) validity of the new tokens
-    decode_mask: Optional[torch.Tensor],  # (B, S) complete mask when T == 1
+    mask: Optional[torch.Tensor],  # (B, S) when T == 1, (B, 1, T, S) when T > 1
 ) -> torch.Tensor:
-    """One cached transformer block writing its K/V at ``[slot, slot+T)``."""
+    """One cached transformer block writing its K/V at ``[slot, slot+T)``.
+
+    ``mask`` is the complete key mask built once by :func:`stack_forward`;
+    ``None`` means the chunk is a prefill into an empty cache, which the
+    prefill kernel runs over the fresh q/k/v.
+    """
     b, t, _ = x.shape
 
     h = rms_norm(x, params["attn_norm"], cfg.rms_eps)
@@ -161,18 +225,29 @@ def _block_forward_cached(
     q = _rotate(q, *rope)
     k = _rotate(k, *rope)
 
-    ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
-    cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
+    if isinstance(slot, int):
+        ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
+        cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
+    else:  # per-row columns; out-of-range columns drop
+        cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
+        scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
+        scatter_rows(cv_all[layer], cols, v.to(cv_all.dtype))
 
-    if t > 1:
+    if mask is None:
         # The chunk IS the whole attention context (empty cache): the
         # prefill kernel runs over the fresh q/k/v directly.
-        mask = attn_mask if attn_mask is not None else torch.ones(
+        pmask = attn_mask if attn_mask is not None else torch.ones(
             (b, t), dtype=torch.bool, device=x.device
         )
-        attn = fused_gqa_attention(q, k, v, mask, causal=True)
+        attn = fused_gqa_attention(q, k, v, pmask, causal=True)
+    elif t == 1:
+        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
     else:
-        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], decode_mask)
+        # T > 1 over a used cache (speculative verify): JAX computes it as
+        # plain masked attention (its einsum branch), and so does the port.
+        scores = _gqa_scores(q, ck_all[layer]) * (1.0 / np.sqrt(cfg.head_dim))
+        probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+        attn = _gqa_mix(probs, cv_all[layer])
 
     attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
     x = x + qmm(attn, params["wo"])
@@ -182,6 +257,46 @@ def _block_forward_cached(
     up = qmm(h, params["w_up"]).float()
     x = x + qmm((gate * up).to(x.dtype), params["w_down"])
     return x
+
+
+def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, block_causal):
+    """The complete key mask of every layer: ``(B, S)`` for T == 1, else
+    ``(B, 1, T, S)``. The new columns count as valid by ``attn_mask``."""
+    key_pos = torch.arange(s, device=device)
+    per_row = not isinstance(slot, int)
+    slot_b = slot[:, None] if per_row else slot  # broadcastable against (B, S)
+    valid = None
+    if key_valid is not None:
+        new_valid = (torch.ones((b, t), dtype=torch.bool, device=device)
+                     if attn_mask is None else attn_mask.bool())
+        valid = key_valid.clone()
+        if per_row:
+            scatter_rows(valid, slot[:, None] + torch.arange(t, device=device)[None, :],
+                         new_valid)
+        else:
+            valid[:, slot : slot + t] = new_valid
+    if t == 1:
+        if slot_causal:
+            causal = (key_pos[None, :] <= slot_b)
+            mask = causal if valid is None else causal & valid
+        else:
+            mask = valid
+        return mask.expand(b, s).contiguous()
+    q_idx = torch.arange(t, device=device)[:, None]  # (T, 1)
+    if per_row:
+        rel = key_pos[None, None, :] - slot[:, None, None]  # (B, 1, S)
+    else:
+        rel = (key_pos - slot)[None, None, :]
+    if slot_causal:
+        mask = rel <= q_idx  # (B or 1, T, S)
+        if valid is not None:
+            mask = mask & valid[:, None, :]
+    else:
+        mask = valid[:, None, :].expand(b, t, s)
+        if block_causal:
+            future = (rel >= 0) & (rel < t) & (rel > q_idx)
+            mask = mask & ~future
+    return mask.expand(b, t, s)[:, None]
 
 
 def stack_forward(
@@ -205,52 +320,54 @@ def stack_forward(
     caller's tensors, updated in place. ``key_valid`` is not modified: the
     new slots count as valid for this forward only, as in JAX.
 
-    Ported here: ``cache_len`` an int slot shared by the batch, a prefill
-    chunk (T > 1) into an empty cache with ``fused_prefill=True``, and
-    single-token decode (T == 1). The other modes of the JAX function wait
-    for the serving slice and raise ``NotImplementedError``.
+    ``cache_len`` is a Python int (a slot shared by the batch), or a tensor:
+    0-d (a shared slot on the device) or ``(B,)`` per-row write columns,
+    whose out-of-range columns drop. A prefill chunk (T > 1) into an empty
+    cache with ``fused_prefill=True`` runs the prefill kernel; T == 1 runs
+    the decode kernel under the complete ``(B, S)`` mask; other T > 1
+    forwards (speculative verify) run plain masked attention, as the JAX
+    package's einsum branch does. ``slot_causal=False`` leaves
+    ``key_valid`` as the only gate (ring caches); ``block_causal`` restores
+    causality inside the newly written block.
+
+    ``kv_window`` (not ported: the decode kernel skips masked slots),
+    ``sp_mesh`` (ROADMAP queue 1 item 12) and the cache-less forward (item
+    11) raise ``NotImplementedError``.
     """
     if kv_caches is None:
-        raise NotImplementedError("cache-less block_forward is not ported yet")
-    if kv_window is not None or not slot_causal or block_causal or sp_mesh is not None:
         raise NotImplementedError(
-            "kv_window, slot_causal=False, block_causal and sp_mesh are not ported yet"
-        )
-    if isinstance(cache_len, torch.Tensor):
-        if cache_len.dim() != 0:
-            raise NotImplementedError("per-row (B,) cache slots are not ported yet")
-        cache_len = int(cache_len)
-    slot = int(cache_len)
+            "the cache-less block_forward is not ported yet: ROADMAP queue 1 item 11")
+    if kv_window is not None:
+        raise NotImplementedError(
+            "kv_window is not ported: the port decodes over the whole cache, whose masked "
+            "slots the decode kernel skips")
+    if sp_mesh is not None:
+        raise NotImplementedError("sp_mesh is not ported yet: ROADMAP queue 1 item 12")
     ck_all, cv_all = kv_caches
     b, t, _ = x.shape
     s = ck_all.shape[2]
-    if t > 1 and not (fused_prefill and slot == 0):
-        raise NotImplementedError(
-            "multi-token forwards are ported only as a prefill into an empty cache "
-            "(cache_len=0, fused_prefill=True)"
-        )
+    if isinstance(cache_len, torch.Tensor):
+        slot = cache_len.to(torch.int64)
+        if slot.dim() == 0:
+            slot = slot.expand(b)
+        if slot.shape != (b,):
+            raise ValueError(f"cache_len {tuple(cache_len.shape)}: expected () or ({b},)")
+    else:
+        slot = int(cache_len or 0)
+    if not slot_causal and key_valid is None:
+        raise ValueError("slot_causal=False needs key_valid, the only gate left")
 
-    decode_mask = None
-    if t == 1:
-        # Complete (B, S) mask, built once for all layers: the new slot is
-        # valid, and slot causality bounds the keys.
-        key_pos = torch.arange(s, device=x.device)[None, :]
-        decode_mask = key_pos <= slot
-        if key_valid is not None:
-            if attn_mask is None:
-                valid = key_valid | (key_pos == slot)
-            else:
-                valid = torch.where(key_pos == slot, attn_mask[:, :1].bool(), key_valid)
-            decode_mask = decode_mask & valid
-        decode_mask = decode_mask.expand(b, s).contiguous()
+    if fused_prefill and t > 1 and isinstance(slot, int) and slot == 0:
+        mask = None
+    else:
+        mask = _attention_mask(b, t, s, slot, x.device, attn_mask, key_valid, slot_causal,
+                               block_causal)
 
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     blocks = params["blocks"]
     for layer in range(int(ck_all.shape[0])):
         lp = {name: _layer(w, layer) for name, w in blocks.items()}
-        x = _block_forward_cached(
-            lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, decode_mask
-        )
+        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, (ck_all, cv_all)
 

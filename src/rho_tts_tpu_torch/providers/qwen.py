@@ -5,9 +5,11 @@ Counterpart of ``rho_tts_tpu/providers/qwen.py``. Wraps
 :class:`~rho_tts_tpu_torch.engine.BaseTTS` engine: voice cloning with
 Base-model paths (reference audio + transcript) and named speakers with
 CustomVoice-model paths, batch generation, the 3-pass loudness
-post-processing on the device, chunked streaming, and the validation loop
+post-processing on the device, chunked streaming, the validation loop
 (the reference voice's speaker embedding is computed when a voice-clone
-model loads).
+model loads), continuous-batching serving (``serving=True``: segments go
+through a ``ServingEngine`` slot batch and validate as they retire) and
+single-segment speculative decoding (``draft_model_path``).
 
 Sampling draws the JAX package's bits: each model call takes a fresh key
 from the engine's threefry chain (:meth:`BaseTTS.next_rng`) and turns it
@@ -15,9 +17,8 @@ into per-row seeds with ``_derive_row_seeds``, so the same seed gives the
 same codes in both packages.
 
 Options whose modules are not ported yet raise ``NotImplementedError`` at
-construction, naming their ROADMAP item: ``serving=True`` and
-``draft_model_path`` (queue 1 item 9), ``parallelism`` (item 12),
-``lora_path`` (item 11).
+construction, naming their ROADMAP item: ``parallelism`` (queue 1 item 12)
+and ``lora_path`` (item 11).
 
 Capability parity: reference ``src/rho_tts/providers/qwen.py:22-413``
 (constructor surface :48-94, routing :218-266, post-processing :268-378,
@@ -71,11 +72,21 @@ class QwenTTS(BaseTTS):
         quantization: "int8" or "int4" talker weights.
         min_audio_sec: Minimum generated duration (EOS masked below it).
         parallelism, n_devices: multi-GPU serving (queue 1 item 12).
-        draft_model_path, speculative_gamma, speculative_residual_mode:
-            speculative decoding (queue 1 item 9).
+        draft_model_path: a smaller checkpoint (or preset) used as the
+            speculative-decoding draft of single-segment generations: it
+            proposes ``speculative_gamma`` codec tokens a round and the
+            target verifies them in one forward.
+        speculative_gamma: draft tokens proposed per round (default 4).
+        speculative_residual_mode: "draft" (accepted slots carry the
+            draft's residual codebooks) or "strict" (the target's, with
+            acceptance truncated where they disagree).
         lora_path: per-voice LoRA adapter (queue 1 item 11).
-        serving, serving_slots, serving_max_prompt, serving_max_frames:
-            the continuous-batching served path (queue 1 item 9).
+        serving: route the pipeline's segments through a continuous-batching
+            ``ServingEngine``: a failed segment rejoins the running slot
+            batch at once instead of waiting for the iteration barrier.
+        serving_slots: slot-batch size of that engine (default 8).
+        serving_max_prompt: its prompt-token cap (default 512).
+        serving_max_frames: its per-request frame cap (default 1024).
     """
 
     MAX_MODEL_CHARS = 4000
@@ -117,10 +128,6 @@ class QwenTTS(BaseTTS):
         serving_max_prompt: int = 512,
         serving_max_frames: int = 1024,
     ):
-        if serving:
-            raise _unported("serving=True", "item 9 (serving.py)")
-        if draft_model_path is not None:
-            raise _unported("draft_model_path=...", "item 9 (models/qwen/speculative.py)")
         if parallelism is not None:
             raise _unported(f"parallelism={parallelism!r}", "item 12 (parallel/)")
         if lora_path is not None:
@@ -142,6 +149,22 @@ class QwenTTS(BaseTTS):
         self.drift_model_path = drift_model_path
         self.quantization = quantization
         self.min_audio_sec = min_audio_sec
+        self.draft_model_path = draft_model_path
+        self.speculative_gamma = speculative_gamma
+        if speculative_residual_mode not in ("draft", "strict"):
+            raise ValueError(
+                f"Unknown speculative_residual_mode: {speculative_residual_mode!r}"
+            )
+        self.speculative_residual_mode = speculative_residual_mode
+        self._draft_model = None
+
+        #: Continuous-batching pipeline mode (engine ``_generate_segments_served``);
+        #: retries draw fresh per-request seeds from the serving engine.
+        self.supports_serving_generation = bool(serving)
+        self.serving_slots = serving_slots
+        self.serving_max_prompt = serving_max_prompt
+        self.serving_max_frames = serving_max_frames
+        self._serving = None
 
         self._max_chars_explicit = max_chars_per_segment is not None
         self.max_chars_per_segment = (
@@ -176,6 +199,18 @@ class QwenTTS(BaseTTS):
             if self.voice_cloning:
                 self._initialize_reference_embedding()
         return self._model
+
+    def _load_draft(self):
+        """Lazy-load the speculative-decoding draft model."""
+        if self._draft_model is None:
+            from ..models.qwen import QwenTTSModel
+
+            logger.info("Loading speculative draft '%s'...", self.draft_model_path)
+            self._draft_model = QwenTTSModel.from_pretrained(
+                self.draft_model_path, seed=self.seed, quantization=self.quantization,
+                device=self.device,
+            )
+        return self._draft_model
 
     def _initialize_reference_embedding(self):
         """Compute the reference speaker embedding for similarity checks."""
@@ -245,16 +280,44 @@ class QwenTTS(BaseTTS):
         """One batched model call; waveforms stay on the model's device.
 
         Row seeds come from the engine's key chain as in the JAX package
-        (``_derive_row_seeds(next_rng(), n)``).
+        (``_derive_row_seeds(next_rng(), n)``). With a draft model, a single
+        text takes speculative decoding from the next key.
         """
         from ..models.qwen.model import _derive_row_seeds
 
         model, voice = self._route()
         is_single = isinstance(text, str)
         text_list = [text] if is_single else list(text)
+        if len(text_list) == 1 and self.draft_model_path:
+            # Single-segment latency path: draft-verify speculative decode
+            wav, _sr = model.synthesize_speculative(
+                text_list[0], self._load_draft(), gamma=self.speculative_gamma,
+                rng=self.next_rng(), residual_mode=self.speculative_residual_mode, **voice,
+            )
+            return wav if is_single else [wav]
         seeds = _derive_row_seeds(self.next_rng(), len(text_list))
         waves, _sr = model.synthesize(text_list, seeds=seeds, **voice)
         return waves[0] if is_single else waves
+
+    def _serving_engine(self):
+        """Lazily build and start the continuous-batching serving engine."""
+        if self._serving is None:
+            from ..serving import ServingEngine
+
+            self._serving = ServingEngine(
+                self._load_model(), n_slots=self.serving_slots,
+                max_prompt=self.serving_max_prompt, max_frames=self.serving_max_frames,
+                seed=self.seed,
+            )
+            self._serving.start()
+        return self._serving
+
+    def _serving_submit(self, text: str):
+        """Submit one pipeline segment to the serving engine (the routing of
+        :meth:`_generate_audio`: CustomVoice needs a named speaker, Base
+        reference audio)."""
+        _model, voice = self._route()
+        return self._serving_engine().submit(text, **voice)
 
     def _post_process_audio(self, audio):
         """Decay-corrected loudness normalization + soft clip (on the device).
@@ -265,9 +328,14 @@ class QwenTTS(BaseTTS):
         return dsp.loudness_postprocess(audio, self.sample_rate)
 
     def _stream_audio_chunks(self, text: str, cancellation_token=None):
-        """Chunked streaming via the codec-LM's sliding-window vocoder."""
+        """Chunked streaming via the codec-LM's sliding-window vocoder.
+
+        Speculative decoding keeps per-segment streaming (None: the engine
+        falls back)."""
         from ..models.qwen.model import _derive_row_seeds
 
+        if self.draft_model_path:
+            return None
         model, voice = self._route()
         cancel_check = cancellation_token.raise_if_cancelled if cancellation_token else None
         seed = int(_derive_row_seeds(self.next_rng(), 1)[0])
@@ -289,9 +357,16 @@ class QwenTTS(BaseTTS):
         self._load_model().save_checkpoint(path)
 
     def close(self) -> None:
-        """Release the model's parameters (device memory)."""
+        """Stop the serving engine, release the models' parameters (device memory)."""
         super().close()
+        if self._serving is not None:
+            try:
+                self._serving.close()
+            except Exception:  # noqa: BLE001
+                logger.exception("serving engine close failed")
+            self._serving = None
         self._model = None
+        self._draft_model = None
         self._free_device_memory()
 
     @classmethod

@@ -55,10 +55,9 @@ def threefry2x32(k0, k1, x0, x1):
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` as an int64 tensor ``(2,)``."""
     seed = int(seed)
-    key = torch.empty(2, dtype=torch.int64, device=device)
-    key[0] = (seed >> 32) & MASK32  # fills, not a host->device copy
-    key[1] = seed & MASK32
-    return key
+    # A select of two constants: no host->device copy, no host wait.
+    first = torch.arange(2, device=device) == 0
+    return torch.where(first, (seed >> 32) & MASK32, seed & MASK32)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:

@@ -483,8 +483,8 @@ def test_key_chain_and_fused_fetches():
 def test_unported_validation_backends_raise(tmp_path, monkeypatch):
     """Validation is ported: without a drift model or a Whisper checkpoint
     every gate passes, as in the JAX package (an explicit missing model
-    path, a checkpoint-less Whisper directory); only the served path
-    (ROADMAP queue 1 item 9) still raises."""
+    path, a checkpoint-less Whisper directory), on the batched path and on
+    the served path (``supports_serving_generation``) alike."""
     from rho_tts_tpu_torch.validation import classifier as tclf
     from rho_tts_tpu_torch.validation.stt import stt_validator as tsv
 
@@ -506,5 +506,14 @@ def test_unported_validation_backends_raise(tmp_path, monkeypatch):
     out = tts.generate("Hello")
     assert out is not None and tts.calls == ["Hello"] and out.drift_prob == 0.0
     tts.supports_serving_generation = True
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tts.generate("Hello")
+    submits = []
+
+    def serving_submit(text):  # a serving request that resolved at once
+        submits.append(text)
+        return SimpleNamespace(wav=_sine(text, [7, 8], 0), error=None, cancelled=False,
+                               add_done_callback=lambda fn: fn(None))
+
+    tts._serving_submit = serving_submit
+    out = tts.generate("Hello")
+    assert out is not None and out.drift_prob == 0.0
+    assert submits == ["Hello"] and tts.calls == ["Hello"]  # no _generate_audio call

@@ -147,6 +147,91 @@ def test_int8_matmul_matches_jax():
     np.testing.assert_allclose(ours4.numpy(), ref4, atol=1e-5, rtol=1e-5)
 
 
+SERVING_MODES = {
+    # (T, cache_len, attn_mask, slot_causal, block_causal)
+    "ring decode: per-row columns, one past the cache": (
+        1, [5, 23, 24], [True, True, False], False, False),
+    "ring decode: shared column": (1, 11, [True, False, True], False, False),
+    "draft step: per-row columns, slot-causal": (1, [3, 17, 9], None, True, False),
+    "speculative verify: per-row block, one row past the end": (
+        4, [2, 21, 9], [True, True, False], False, True),
+    "speculative verify: no block causality": (3, [4, 0, 12], None, False, False),
+    "single-stream verify: shared slot, slot-causal": (4, 7, None, True, False),
+}
+
+
+@pytest.mark.parametrize("mode", list(SERVING_MODES))
+def test_stack_forward_serving_modes(mode):
+    """Per-row slots (out-of-range columns dropped), ``slot_causal=False``
+    and ``block_causal`` against JAX's ``stack_forward`` (its einsum branch,
+    which serving runs) at 1e-5 over an f32 cache, the same columns
+    written. The caches hold random keys under a random ``key_valid``, so
+    valid keys are not a prefix. (A float8 cache is held at the attention's
+    primitives below: a key written across layers may round to the other
+    e4m3 neighbour where the packages' f32 sums differ by an ulp.)"""
+    t, cache_len, attn_mask, slot_causal, block_causal = SERVING_MODES[mode]
+    jcfg, jparams, tcfg, tparams = _params(False)
+    rng = np.random.default_rng(3)
+    b, s = 3, 24
+    shape = (CFG["layers"], b, s, CFG["kv_heads"], CFG["head_dim"])
+    ck0 = rng.standard_normal(shape).astype(np.float32)
+    cv0 = rng.standard_normal(shape).astype(np.float32)
+    kv = rng.random((b, s)) < 0.6
+    x = (rng.standard_normal((b, t, CFG["hidden"])) * 0.5).astype(np.float32)
+    pos = rng.integers(0, 40, (b, 1)) + np.arange(t)[None, :]
+    am = None if attn_mask is None else np.repeat(np.asarray(attn_mask)[:, None], t, axis=1)
+    kw = dict(slot_causal=slot_causal, block_causal=block_causal)
+
+    jh, (jck, jcv) = jtfm.stack_forward(
+        jparams, jcfg, jnp.asarray(x), jnp.asarray(pos),
+        kv_caches=(jnp.asarray(ck0), jnp.asarray(cv0)),
+        cache_len=jnp.asarray(cache_len, jnp.int32),
+        attn_mask=None if am is None else jnp.asarray(am), key_valid=jnp.asarray(kv), **kw)
+    tck, tcv = from_jax._to_tensor(ck0), from_jax._to_tensor(cv0)
+    th, _ = ttfm.stack_forward(
+        tparams, tcfg, torch.from_numpy(x), torch.from_numpy(pos), kv_caches=(tck, tcv),
+        cache_len=(torch.tensor(cache_len) if isinstance(cache_len, list) else cache_len),
+        attn_mask=None if am is None else torch.from_numpy(am),
+        key_valid=torch.from_numpy(kv), **kw)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-5, rtol=1e-5)
+    # The same columns written (the rest bit-identical to before), the
+    # written keys within f32 rounding, or one e4m3 step for an f8 cache.
+    for ours, ref, before in ((tck, jck, ck0), (tcv, jcv, cv0)):
+        ours, ref = ours.numpy(), np.asarray(ref)
+        np.testing.assert_array_equal(ours != before, ref != before)
+        np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_verify_attention_primitives_match_jax(kv_dtype):
+    """``_gqa_scores`` / ``_gqa_mix`` of the T > 1 path against JAX's: an f8
+    cache computes in bf16 (q rounded, probabilities rounded before the
+    mix), others in f32; products summed in f32 in both."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, 4, 4, 16)).astype(np.float32)
+    jdt = getattr(jnp, kv_dtype)
+    k, v = (np.asarray(jnp.asarray(rng.standard_normal((2, 24, 2, 16)), jnp.float32).astype(jdt))
+            for _ in range(2))
+    ref = np.asarray(jtfm._gqa_scores(jnp.asarray(q), jnp.asarray(k)))
+    ours = ttfm._gqa_scores(torch.from_numpy(q), from_jax._to_tensor(k)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(ref), axis=-1))
+    ref = np.asarray(jtfm._gqa_mix(jnp.asarray(probs), jnp.asarray(v)))
+    ours = ttfm._gqa_mix(torch.from_numpy(probs.copy()), from_jax._to_tensor(v)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_scatter_rows_drops_out_of_range_columns():
+    """Dropped entries leave every other column as it was; a row whose
+    columns all fall outside keeps its contents."""
+    buf = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    cols = torch.tensor([[2, 3, 4, 5], [4, 5, 6, 7], [-1, 0, 1, 2]])
+    vals = -torch.arange(1, 13, dtype=torch.float32).reshape(3, 4)
+    keep = torch.tensor([[True] * 4, [True] * 4, [True, True, False, True]])
+    ttfm.scatter_rows(buf, cols, vals, keep)
+    assert buf.tolist() == [[0, 1, -1, -2], [4, 5, 6, 7], [-10, 9, -12, 11]]
+
+
 def test_unported_modes_raise():
     tcfg = ttfm.TransformerConfig(**CFG, dtype=torch.float32)
     tparams = _params(False)[3]
@@ -154,16 +239,10 @@ def test_unported_modes_raise():
     pos = torch.zeros((2, 1), dtype=torch.int64)
     caches = ttfm.make_kv_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
     kv = torch.ones((2, 8), dtype=torch.bool)
-    for kwargs in (
-        dict(kv_caches=None),
-        dict(kv_caches=caches, cache_len=torch.tensor([1, 2]), key_valid=kv),
-        dict(kv_caches=caches, cache_len=1, key_valid=kv, slot_causal=False),
-        dict(kv_caches=caches, cache_len=1, key_valid=kv, kv_window=4),
-        dict(kv_caches=caches, cache_len=1, key_valid=kv, block_causal=True),
+    for kwargs, match in (
+        (dict(kv_caches=None), "queue 1 item 11"),
+        (dict(kv_caches=caches, cache_len=1, key_valid=kv, kv_window=4), "whole cache"),
+        (dict(kv_caches=caches, cache_len=1, key_valid=kv, sp_mesh=object()), "queue 1 item 12"),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=match):
             ttfm.stack_forward(tparams, tcfg, x, pos, **kwargs)
-    with pytest.raises(NotImplementedError):  # multi-token forward into a used cache
-        ttfm.stack_forward(tparams, tcfg, torch.zeros((2, 3, CFG["hidden"])),
-                           torch.zeros((2, 3), dtype=torch.int64), kv_caches=caches,
-                           cache_len=2, key_valid=kv, fused_prefill=True)
