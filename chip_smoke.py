@@ -13,7 +13,9 @@ Phases, each fatal on failure:
    kernel, the plain version and one PyTorch library call as a yardstick;
    the attention kernels also at the shapes and masks where their designs
    can go wrong; every case launched twice and compared bit for bit; the
-   int4 and w8a8 cases with their launch plans;
+   int4 and w8a8 cases with their launch plans; and every kernel at the
+   Chatterbox shapes (head_dim 64, group 1, K = 1024 / 4096, CFG rows;
+   ``chatterbox_cases`` in each kernel's entry);
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -49,7 +51,16 @@ Phases, each fatal on failure:
    beside a static batch-5 ``synthesize`` of the first 10; speculative
    serving with a ``draft-1.7B`` draft; ``QwenTTS(serving=True)`` on phase
    7's texts (see :func:`run_serving_path`). Each kernel's entry gains
-   ``launches_serving``.
+   ``launches_serving``;
+10. Chatterbox: bench.py config 4 through ``TTSFactory("chatterbox")`` on
+    the "standard" preset (random weights, int8): one segment timed (a
+    warm-up, the median of 3) with the watermark held bit for bit and no
+    host wait in the decode loop before its one fetch; 4 candidates a round
+    with forced drift failures; CFG-pair serving (admission and dispatch
+    under ``set_sync_debug_mode("error")``) beside the lockstep loop;
+    ``stream()``; int4 (see :func:`run_chatterbox_path`), each part logged
+    as ``phase 10 <part> (<card>): {...}``. Each kernel's entry gains
+    ``launches_chatterbox``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -65,6 +76,7 @@ sources: ``parent_ms`` beside each case's ``ms``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import importlib
 import importlib.util
@@ -530,6 +542,139 @@ def check_int4(qz, i4, gen, parent=None) -> dict:
         "library_ms": main["library_ms"], "host_us": main["host_us"],
         "library": "torch.matmul(x, w) on the pre-dequantized bf16 weight",
     }
+
+
+# Chatterbox "standard" talker: hidden 1024, 30 layers, 16 query and 16 KV
+# heads of 64 (group 1), ffn 4096; CFG folds each request into 2 rows.
+CB_HEADS, CB_D = 16, 64
+CB_MATMULS = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))  # wqkv, wo, gate/up, down
+
+
+def _prefill_bound(q, k, v, mask):
+    """The prefill bound for these inputs: q, k, v, the mask and the output
+    once; the products of the (query, key) pairs that are causal and valid."""
+    t, s = q.shape[1], k.shape[1]
+    causal = torch.ones((t, s), dtype=torch.bool, device=q.device).tril(s - t)
+    pairs = int((causal[None] & mask[:, None, :]).sum()) * q.shape[2]
+    return bound_ms(nbytes(q, k, v, mask, q), 4 * q.shape[3] * pairs, BF16_FLOP_PER_S)
+
+
+def _cfg_prompt_mask(rows: int, p: int, cond_lens, uncond_len: int = 2) -> torch.Tensor:
+    """Left-padded CFG prompt rows ``[cond x k, uncond x k]`` of a P-slot bucket."""
+    lens = list(cond_lens) + [uncond_len] * (rows - len(cond_lens))
+    return _pad_mask(p, [p - n for n in lens])
+
+
+def _cfg_decode_mask(rows: int, s: int, p: int, slot: int, cond_lens, uncond_len: int = 2):
+    """The one-shot CFG decode mask at write slot ``slot``: each row's prompt
+    (left-padded in a P-slot bucket) and the decoded slots up to ``slot``."""
+    key_pos = torch.arange(s, device="cuda")[None, :]
+    lens = list(cond_lens) + [uncond_len] * (rows - len(cond_lens))
+    pads = torch.tensor([p - n for n in lens], device="cuda")[:, None]
+    return (key_pos >= pads) & (key_pos <= slot)
+
+
+def check_chatterbox_shapes(attn, dec, qz, w8, i4, gen) -> dict:
+    """Phase 2 at the Chatterbox shapes: every kernel of its path (D = 64,
+    group 1, K = 1024 / 4096), against its plain version, twice for the same
+    bits, with its time, its bound for these inputs and a library call's.
+    Returns the cases by kernel name."""
+    bf, f8, f32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {name: [] for name in ("prefill_gqa_attention", "decode_gqa_attention",
+                                 "w8a8_matmul", "int4_matmul")}
+
+    def timed(case, kernel, plain, library, bound):
+        case.update(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                    library_ms=None if library is None else time_ms(library))
+        case["bound_ms"], case["bound_by"] = bound
+
+    # Prefill: 64-slot prompts of 1 request (2 rows) and 4 candidates
+    # (8 rows); serving admissions of 4 requests in a 128-slot bucket.
+    for dtype, tol, rows, p, cond, what in (
+        (bf, 2e-2, 2, 64, [32], "generate(): 1 request, P=64"),
+        (f32, 2e-5, 2, 64, [32], "f32, P=64"),
+        (bf, 2e-2, 8, 64, [32] * 4, "4 candidates, P=64"),
+        (bf, 2e-2, 8, 128, [70, 101, 33, 128], "serving admission A=4, P=128"),
+    ):
+        mask = _cfg_prompt_mask(rows, p, cond)
+        q, k, v = _attn_inputs(gen, (rows, p, CB_HEADS, CB_D), (rows, p, CB_HEADS, CB_D),
+                               dtype, dtype)
+        run = lambda: attn.fused_gqa_attention(q, k, v, mask)  # noqa: E731
+        plain = lambda: attn.reference_gqa_attention(q, k, v, mask)  # noqa: E731
+        case = {"case": what, "dtype": str(dtype).split(".")[-1], "q": list(q.shape),
+                "kv": list(k.shape)}
+        _held(out["prefill_gqa_attention"], "chatterbox prefill attention", case, run(), run(),
+              plain(), tol)
+        lib_mask = (mask[:, None, None, :]
+                    & torch.ones((p, p), dtype=torch.bool, device="cuda").tril()[None, None])
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        timed(case, run, plain, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=lib_mask), _prefill_bound(q, k, v, mask))
+
+    # Decode: the one-shot cache of bench's 7 s floor (P = 64 + 2 chunks of
+    # 128: S = 320) for 1 request and 4 candidates, bf16 and f8; the longest
+    # default cache (S = 64 + 16 x 128); serving's ring (4 slots, chunk 64,
+    # max_prompt 128, max_frames 256: S = 448) with a wrapped row, an empty
+    # slot and rows of different ages.
+    for q_dtype, kv_dtype, tol, rows, s, mask, what in (
+        (bf, bf, 2e-2, 2, 320, _cfg_decode_mask(2, 320, 64, 200, [32]), "generate(), S=320"),
+        (bf, f8, 2e-2, 2, 320, _cfg_decode_mask(2, 320, 64, 200, [32]), "f8 cache, S=320"),
+        (f32, f32, 2e-5, 2, 320, _cfg_decode_mask(2, 320, 64, 319, [32]), "f32, S=320"),
+        (bf, bf, 2e-2, 8, 320, _cfg_decode_mask(8, 320, 64, 250, [32] * 4),
+         "4 candidates, S=320"),
+        (bf, f8, 2e-2, 8, 320, _cfg_decode_mask(8, 320, 64, 250, [32] * 4),
+         "4 candidates, f8 cache, S=320"),
+        (bf, bf, 2e-2, 2, 2112, _cfg_decode_mask(2, 2112, 64, 1500, [40]), "S=2112"),
+        (bf, bf, 2e-2, 8, 448, ring_mask(8, 448, 300), "serving ring S=448"),
+        (bf, f8, 2e-2, 8, 448, ring_mask(8, 448, 447), "serving ring S=448 at the end, f8"),
+    ):
+        q, k, v = _attn_inputs(gen, (rows, 1, CB_HEADS, CB_D), (rows, s, CB_HEADS, CB_D),
+                               q_dtype, kv_dtype)
+        run = lambda: dec.decode_gqa_attention(q, k, v, mask)  # noqa: E731
+        plain = lambda: dec.reference_decode_attention(q, k, v, mask)  # noqa: E731
+        case = {"case": what, "q/kv": f"{str(q_dtype).split('.')[-1]}/"
+                f"{str(kv_dtype).split('.')[-1]}", "q": list(q.shape), "kv": list(k.shape),
+                "splits": dec.plan_splits(s, rows * CB_HEADS, sms)}
+        _held(out["decode_gqa_attention"], "chatterbox decode attention", case, run(), run(),
+              plain(), tol)
+        qh, kh, vh = q.transpose(1, 2), k.to(q_dtype).transpose(1, 2), v.to(q_dtype).transpose(1, 2)
+        timed(case, run, plain, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None, None, :]), _decode_bound(q, k, mask))
+
+    # w8a8 (RHO_TTS_TPU_W8A8_PREFILL=1): prefill rows of 1 request (2 x 64)
+    # and 4 candidates (8 x 64). Bit-identical to the plain version.
+    for m in (128, 512):
+        for kk, n in CB_MATMULS:
+            qw = _quantized_weight(qz.quantize_weight, kk, n, gen)
+            xf = torch.randn((m, kk), generator=gen, device="cuda").to(bf).float()
+            sx = qz._div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8), 127.0)
+            xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+            args = (xq, sx, qw["q"], qw["s"], bf)
+            o1, o2, ref = w8.w8a8_matmul(*args), w8.w8a8_matmul(*args), \
+                w8.reference_w8a8_matmul(*args)
+            case = {"m": m, "k": kk, "n": n, "plan": {"tokens_per_block": w8.plan(m, kk, n, sms)}}
+            _held(out["w8a8_matmul"], "chatterbox w8a8 matmul", case, o1, o2, ref, 0.0)
+            timed(case, lambda: w8.w8a8_matmul(*args), lambda: w8.reference_w8a8_matmul(*args),
+                  lambda: torch._int_mm(xq, qw["q"]),
+                  bound_ms(nbytes(xq, sx, qw["q"], qw["s"], o1), 2 * m * kk * n, INT8_OP_PER_S))
+
+    # int4: the decode GEMV at 2 and 8 rows, the prefill GEMM at 128 and 512.
+    for m in (2, 8, 128, 512):
+        for kk, n in CB_MATMULS:
+            qw = _quantized_weight(qz.pack_int4, kk, n, gen)
+            x = torch.randn((m, kk), generator=gen, device="cuda").to(bf)
+            args = (x, qw["q4"], qw["s"])
+            o1, o2, ref = i4.int4_matmul(*args), i4.int4_matmul(*args), \
+                i4.reference_int4_matmul(*args)
+            tol = 2e-2 * ref.float().abs().max().item() + 1e-3  # as phase 2's int4 cases
+            case = {"m": m, "k": kk, "n": n, "plan": i4.plan(bf, m, kk // 2, n, sms)}
+            _held(out["int4_matmul"], "chatterbox int4 matmul", case, o1, o2, ref, tol)
+            w_deq = (i4.unpack_int4(qw["q4"]) * qw["s"]).to(bf)
+            timed(case, lambda: i4.int4_matmul(*args), lambda: i4.reference_int4_matmul(*args),
+                  lambda: torch.matmul(x, w_deq),
+                  bound_ms(nbytes(x, qw["q4"], qw["s"], o1), 2 * m * kk * n, BF16_FLOP_PER_S))
+    return out
 
 
 def load_parent(root: str):
@@ -1791,6 +1936,479 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the Chatterbox family (bench.py config 4)
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_chatterbox: its single text, its 8-segment text, a 3 s
+# 180 Hz reference at 24 kHz, a 7 s floor, the first 2 drift validations
+# of every generate() forced to fail (BENCH_CB_FAILS=2).
+CB_TEXT = "A single segment regenerated with the full validation loop enabled."
+CB_SEGMENTS = " ".join(
+    f"Sentence number {i} of the retry gauntlet runs the whole validation loop."
+    for i in range(8))
+CB_FAILS = 2
+CB_MIN_AUDIO_SEC = 7.0
+WATERMARK_TOL = 1e-6  # the embed's CPU parity tolerance (test_torch_port_watermark.py)
+
+
+def _failing_chatterbox(base_cls, engine_cls, fails: int):
+    """bench.py's ``FailingChatterboxTTS``: the first ``fails`` drift
+    validations of each ``generate()`` are rejected."""
+
+    class FailingChatterboxTTS(base_cls):
+        _seen = 0
+
+        def generate(self, *a, **kw):
+            self._seen = 0
+            return super().generate(*a, **kw)
+
+        def _inject(self, results):
+            out = []
+            for p, ok in results:
+                out.append((0.99, False) if self._seen < fails else (p, ok))
+                self._seen += 1
+            return out
+
+        def _validate_accent_drift(self, audio, sample_rate):
+            return self._inject([super()._validate_accent_drift(audio, sample_rate)])[0]
+
+        def _validate_accent_drift_batch(self, audios, sample_rate):
+            # The stock batch hook sees the overridden single hook and would
+            # call it per audio (injecting twice): shadow it with the stock
+            # one for this call, then inject once.
+            self.__dict__["_validate_accent_drift"] = \
+                engine_cls._validate_accent_drift.__get__(self)
+            try:
+                real = super()._validate_accent_drift_batch(audios, sample_rate)
+            finally:
+                del self.__dict__["_validate_accent_drift"]
+            return self._inject(real)
+
+    return FailingChatterboxTTS
+
+
+class _CbClock:
+    """CUDA events around the Chatterbox model's stage functions (module
+    globals, looked up at each call) and the tokens each decode chunk
+    returns; no host sync."""
+
+    STAGES = ("_prefill", "_decode_chunk", "_vocode", "apply_watermark")
+
+    def __init__(self, cbm):
+        self.cbm = cbm
+        self.events = {name: [] for name in self.STAGES}
+        self.chunks = []  # (toks (B, steps), done (B, steps)) of each decode chunk
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.STAGES:
+            inner = self.saved[name] = getattr(self.cbm, name)
+            events = self.events[name]
+
+            def timed(*args, _inner=inner, _events=events, _name=name, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = _inner(*args, **kwargs)
+                end.record()
+                _events.append((start, end))
+                if _name == "_decode_chunk":
+                    self.chunks.append((res[0], res[1]))
+                return res
+
+            setattr(self.cbm, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cbm, name, fn)
+
+    def ms(self, name) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events[name])
+
+    def n(self, name) -> int:
+        return len(self.events[name])
+
+
+def _launches(kmods):
+    return {name: mod.launches for name, mod in kmods.items()}
+
+
+def _zero(kmods):
+    for mod in kmods.values():
+        mod.launches = 0
+
+
+def _cb_want(layers, prefills=0, steps=0, int4=False):
+    """Exact launch counts: the prefill kernel once a layer a prefill, the
+    decode kernel once a layer a step; int4 in the 5 matmuls of every layer
+    of every forward."""
+    return {"prefill_gqa_attention": layers * prefills, "decode_gqa_attention": layers * steps,
+            "w8a8_matmul": 0, "int4_matmul": 5 * layers * (prefills + steps) if int4 else 0}
+
+
+def _cb_timed_generate(tts, cbm, kmods, layers, text, runs: int = 3, probe=None) -> dict:
+    """A warm-up ``generate()``, then ``runs`` timed (median by wall), each
+    with exact launch counts; ``probe()``, a context manager, wraps the last."""
+    t0 = time.perf_counter()
+    tts.generate(text)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    timed = []
+    for i in range(runs):
+        _zero(kmods)
+        last = probe is not None and i == runs - 1
+        with _CbClock(cbm) as clock, (probe() if last else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            result = tts.generate(text)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = _launches(kmods)
+        steps = clock.n("_decode_chunk") * cbm.CHUNK
+        want = _cb_want(layers, clock.n("_prefill"), steps,
+                        int4=tts.model.quantization == "int4")
+        if launches != want or clock.n("_prefill") != 1 or result is None \
+                or not bool(torch.isfinite(result.audio).all()):
+            raise AssertionError(f"chatterbox generate(): launches {launches} vs {want}, "
+                                 f"{clock.n('_prefill')} prefills, result {result!r}")
+        timed.append({
+            "wall_s": wall, "audio_s": result.duration_sec, "rtf": result.duration_sec / wall,
+            "prefill_ms": clock.ms("_prefill"), "decode_steps": steps,
+            "decode_ms_per_step": clock.ms("_decode_chunk") / steps,
+            "vocode_ms": clock.ms("_vocode"), "watermark_ms": clock.ms("apply_watermark"),
+            "launches": launches})
+    timed.sort(key=lambda r: r["wall_s"])
+    out = dict(timed[len(timed) // 2])
+    out.update(warmup_s=warm_s, runs=runs, walls_s=[r["wall_s"] for r in timed])
+    return out
+
+
+def run_chatterbox_path(kmods, build_dir: str, smi: str, device: str = "cuda") -> dict:
+    """Phase 10: ``bench.py`` config 4 through ``TTSFactory("chatterbox")``.
+
+    The "standard" preset at full width (hidden 1024, 30 layers, 16 heads of
+    64), random weights, weight-only int8, a 3 s 180 Hz reference at 24 kHz,
+    ``max_chars_per_segment=400``, ``min_audio_sec=7.0``, no silence trim:
+
+    a. one segment, ``max_iterations=1``: a warm-up and 3 timed runs (the
+       median reported) with exact launch counts; in the last, the model's
+       ``generate()`` against its raw vocode + ``apply_watermark`` bit for
+       bit, with no host wait before its done-bitmap fetch; the embed card
+       vs CPU; ``detect_watermark`` on a marked 3 s sine;
+    b. ``candidates_per_iteration=4`` (8 CFG rows) with 2 forced drift
+       failures, ``max_iterations=5``; reported, not fatal: candidate i's
+       first decode chunk against ``generate(seed=seeds[i])``'s;
+    c. ``serving=True`` (4 slots, prompt 128, 256 frames) on the 8-segment
+       text (``max_chars_per_segment=80``, 2 forced failures), a standalone
+       engine's admission and dispatch first under
+       ``set_sync_debug_mode("error")``; the same text lockstep beside it;
+    d. ``stream()``: the first chunk's latency; its tokens and pieces
+       against a one-shot ``generate()`` from the same key;
+    e. ``quantization="int4"``: one run of (a)'s text.
+    """
+    import numpy as np
+
+    from rho_tts_tpu_torch import TTSFactory, engine, serving_cb
+    from rho_tts_tpu_torch.audio_io import save_wav
+    from rho_tts_tpu_torch.models.chatterbox import model as cbm
+    from rho_tts_tpu_torch.ops import watermark as wm
+    from rho_tts_tpu_torch.providers.chatterbox import ChatterboxTTS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = os.path.join(build_dir, "phase10")
+    os.makedirs(out_dir, exist_ok=True)
+    sr = 24000
+    sine = (0.3 * np.sin(2 * np.pi * 180 * np.arange(3 * sr) / sr)).astype(np.float32)
+    ref = os.path.join(out_dir, "ref.wav")
+    save_wav(ref, sine, sr)
+    common = dict(implementation="standard", reference_audio=ref, quantization="int8",
+                  min_audio_sec=CB_MIN_AUDIO_SEC, device=device)
+    failing = _failing_chatterbox(ChatterboxTTS, engine.BaseTTS, CB_FAILS)
+    layers = cbm.PRESETS["standard"].talker.layers
+    out = {"card": smi, "preset": "standard", "quantization": "int8",
+           "weights": "random (seed 789)", "text": CB_TEXT}
+
+    # -- a. one segment -----------------------------------------------------
+    t0 = time.perf_counter()
+    tts = TTSFactory.get_tts_instance("chatterbox", max_chars_per_segment=400,
+                                      max_iterations=1, **common)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tts.trim_silence = False  # random-weight output sits under the trim gate
+    model = tts.model
+    raw = {}
+
+    @contextlib.contextmanager
+    def probe():
+        """In the last timed run: the model's output and its raw vocode, and
+        the decode loop under set_sync_debug_mode("error") up to its fetch."""
+        inner_vocode, inner_generate = cbm._vocode, model.generate
+
+        def spy(params, cfg, toks):
+            raw["vocode"] = inner_vocode(params, cfg, toks)
+            return raw["vocode"]
+
+        def generate(*args, **kwargs):
+            raw["generate"] = inner_generate(*args, **kwargs)
+            return raw["generate"]
+
+        cbm._vocode, model.generate = spy, generate
+        restore = _guard_sync(model, ("_start_decode", "_decode_all"))
+        try:
+            yield
+        finally:
+            restore()
+            cbm._vocode = inner_vocode
+            del model.generate
+
+    a = _cb_timed_generate(tts, cbm, kmods, layers, CB_TEXT, probe=probe)
+    a["init_s"] = init_s
+    _sync_checked(lambda: None)  # the positive control: the mode catches a fetch
+    wav = raw["generate"]
+    plain = raw["vocode"][0, : wav.shape[0]]
+    marked = wm.apply_watermark(plain)
+    cpu = wm.apply_watermark(plain.cpu())
+    embed_err = (marked.cpu() - cpu).abs().max().item()
+    sine_t = torch.from_numpy(sine).to(device)
+    score, score_plain = wm.detect_watermark(wm.apply_watermark(sine_t)), \
+        wm.detect_watermark(sine_t)
+    a.update(generate_equals_vocode_plus_watermark=bool(torch.equal(wav, marked)),
+             watermark_added=bool(not torch.equal(wav, plain)),
+             host_waits_before_done_fetch=0,
+             watermark_card_vs_cpu={"samples": int(wav.shape[0]), "max_abs_err": embed_err,
+                                    "tol": WATERMARK_TOL},
+             detect_marked_sine=score, detect_plain_sine=score_plain)
+    if not (a["generate_equals_vocode_plus_watermark"] and a["watermark_added"]) \
+            or not embed_err <= WATERMARK_TOL or not score > 5.0 or not score_plain < 5.0:
+        raise AssertionError(f"chatterbox watermark checks: {a}")
+    out["a_one_segment"] = a
+    log(f"phase 10 a_one_segment ({smi}): {json.dumps(a)}")
+    tts.close()
+
+    # -- b. candidates ------------------------------------------------------
+    tts = failing(max_chars_per_segment=400, max_iterations=5, candidates_per_iteration=4,
+                  **common)
+    tts.trim_silence = False
+    model = tts.model
+    rounds = []
+    inner_cands = tts._generate_audio_candidates
+
+    def counted(text, k):
+        rounds.append(k)
+        return inner_cands(text, k)
+
+    tts._generate_audio_candidates = counted
+    seeds_seen = []
+    inner_start = model._start_decode
+
+    def start(*args, **kwargs):
+        st = inner_start(*args, **kwargs)
+        seeds_seen.append(st["seeds"].cpu().tolist())
+        return st
+
+    model._start_decode = start
+    _zero(kmods)
+    with _CbClock(cbm) as clock:
+        t0 = time.perf_counter()
+        result = tts.generate(CB_TEXT)
+        torch.cuda.synchronize()
+        bwall = time.perf_counter() - t0
+    blaunches = _launches(kmods)
+    bsteps = clock.n("_decode_chunk") * cbm.CHUNK
+    bwant = _cb_want(layers, clock.n("_prefill"), bsteps)
+    del model._start_decode
+    if result is None or blaunches != bwant or rounds != [4]:
+        raise AssertionError(f"chatterbox candidates: rounds {rounds}, launches {blaunches} "
+                             f"vs {bwant}, result {result!r}")
+    cand_toks = clock.chunks[0][0]  # (4, 128): the first decode chunk
+    parity = []
+    for i, seed in enumerate(seeds_seen[0]):
+        # generate(seed=...)'s first chunk, through stream_chunks (the same
+        # cache and decode), stopped after it: tokens past the first
+        # difference follow other histories and say nothing more.
+        with _CbClock(cbm) as one:
+            next(iter(model.stream_chunks(CB_TEXT, seed=seed, **tts._prime_conditionals())))
+        toks = one.chunks[0][0][0]
+        n = min(toks.shape[0], cand_toks.shape[1])
+        eq = (toks[:n] == cand_toks[i, :n]).cpu().numpy()
+        parity.append({"seed": seed, "frames": n, "equal_share": float(eq.mean()),
+                       "first_difference": None if eq.all() else int(np.argmin(eq))})
+    out["b_candidates"] = {
+        "candidates_per_iteration": 4, "cfg_rows": 8, "max_iterations": 5, "forced_fails": 2,
+        "warmup": "none: (a) warmed the kernels and the model", "wall_s": bwall,
+        "audio_s": result.duration_sec,
+        "rtf": result.duration_sec / bwall, "a_wall_s": a["wall_s"], "a_rtf": a["rtf"],
+        "rounds": len(rounds), "attempts_charged": sum(rounds), "decode_steps": bsteps,
+        "decode_ms_per_step": clock.ms("_decode_chunk") / bsteps,
+        "launches": blaunches,
+        "candidate_vs_generate": {
+            "required": False, "frames_compared": "the first decode chunk (128)",
+            "candidates": parity,
+            "why": "another batch size splits the decode kernel's keys otherwise, so bf16 "
+                   "near-ties of random weights can round apart; exact parity is the CPU "
+                   "tests' job"}}
+    log(f"phase 10 b_candidates ({smi}): {json.dumps(out['b_candidates'])}")
+    tts.close()
+
+    # -- c. serving -----------------------------------------------------------
+    serve_kw = dict(max_chars_per_segment=80, max_iterations=CB_FAILS + 2, **common)
+    tts = failing(serving=True, serving_slots=4, serving_max_prompt=128,
+                  serving_max_frames=256, **serve_kw)
+    tts.trim_silence = False
+    model = tts.model
+    min_frames = int(CB_MIN_AUDIO_SEC * model.cfg.codec.frame_rate)
+    # A standalone engine first (also the warm-up): driven in this thread,
+    # its admission and dispatch under set_sync_debug_mode("error").
+    eng = serving_cb.ChatterboxServingEngine(model, n_slots=4, max_prompt=128, max_frames=256,
+                                             seed=tts.seed)
+    sentences = [f"Sentence number {i} of the retry gauntlet runs the whole validation loop."
+                 for i in range(8)]
+    tts._prime_conditionals()
+    restore = _guard_sync(eng, ("_admit", "_dispatch"))
+    _zero(kmods)
+    t0 = time.perf_counter()
+    try:
+        reqs = [eng.submit(t, min_frames=min_frames, cfg_weight=tts.cfg_weight,
+                           stream=i % 2 == 1) for i, t in enumerate(sentences[:4])]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    ewall = time.perf_counter() - t0
+    _sync_checked(lambda: None)
+    elaunches = _launches(kmods)
+    ewant = _cb_want(layers, eng.admissions, eng.dispatches * eng.chunk)
+    for i, r in enumerate(reqs):
+        w, _sr = r.result(timeout=60)
+        if r.n_frames < min_frames or w.shape != (r.n_frames * model.cfg.codec.hop,) \
+                or not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"chatterbox serving request {i}: {r.n_frames} frames, "
+                                 f"{tuple(w.shape)}")
+        if r.stream and not torch.equal(torch.cat([p for p, _ in r.chunks(timeout=60)]), w):
+            raise AssertionError(f"chatterbox serving request {i}: streamed pieces differ")
+    if elaunches != ewant:
+        raise AssertionError(f"chatterbox serving engine: launches {elaunches} vs {ewant}")
+    engine_part = {"requests": 4, "streamed": 2, "wall_s": ewall, "ring": eng.ring,
+                   "admissions": eng.admissions, "dispatches": eng.dispatches,
+                   "frames": sum(r.n_frames for r in reqs), "launches": elaunches,
+                   "host_waits_in_admission_and_dispatch": 0}
+    eng.close()
+
+    _zero(kmods)
+    t0 = time.perf_counter()
+    served = tts.generate(CB_SEGMENTS)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    slaunches = _launches(kmods)
+    seng = tts._serving
+    swant = _cb_want(layers, seng.admissions, seng.dispatches * seng.chunk)
+    if served is None or slaunches != swant or not bool(torch.isfinite(served.audio).all()):
+        raise AssertionError(f"chatterbox served generate(): launches {slaunches} vs {swant}, "
+                             f"{served!r}")
+    sdisp, sadm = seng.dispatches, seng.admissions
+    tts.close()
+
+    tts = failing(**serve_kw)
+    tts.trim_silence = False
+    _zero(kmods)
+    with _CbClock(cbm) as clock:
+        t0 = time.perf_counter()
+        lock = tts.generate(CB_SEGMENTS)
+        torch.cuda.synchronize()
+        lwall = time.perf_counter() - t0
+    llaunches = _launches(kmods)
+    lwant = _cb_want(layers, clock.n("_prefill"), clock.n("_decode_chunk") * cbm.CHUNK)
+    if lock is None or llaunches != lwant:
+        raise AssertionError(f"chatterbox lockstep generate(): launches {llaunches} vs {lwant}")
+    out["c_serving"] = {
+        "segments": 8, "forced_fails": CB_FAILS, "slots": 4, "max_prompt": 128,
+        "max_frames": 256, "standalone_engine": engine_part,
+        "served": {"wall_s": swall, "audio_s": served.duration_sec,
+                   "rtf": served.duration_sec / swall, "admissions": sadm,
+                   "dispatches": sdisp, "launches": slaunches},
+        "lockstep": {"wall_s": lwall, "audio_s": lock.duration_sec,
+                     "rtf": lock.duration_sec / lwall, "generate_calls": clock.n("_prefill"),
+                     "decode_chunks": clock.n("_decode_chunk"), "launches": llaunches}}
+    log(f"phase 10 c_serving ({smi}): {json.dumps(out['c_serving'])}")
+    tts.close()
+
+    # -- d. stream() ------------------------------------------------------------
+    tts = TTSFactory.get_tts_instance("chatterbox", max_chars_per_segment=400,
+                                      max_iterations=1, **common)
+    tts.trim_silence = False
+    model = tts.model
+    keys = []
+    inner_stream = model.stream_chunks
+
+    def stream_chunks(*args, **kwargs):
+        keys.append(kwargs["rng"])
+        return inner_stream(*args, **kwargs)
+
+    model.stream_chunks = stream_chunks
+    pieces = []
+    with _CbClock(cbm) as sclock:
+        t0 = time.perf_counter()
+        first_s = None
+        for chunk in tts.stream(CB_TEXT):
+            torch.cuda.synchronize()
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            pieces.append(chunk.audio)
+        stream_wall = time.perf_counter() - t0
+    del model.stream_chunks
+    # The one-shot generate() from the stream's key, with the fades the
+    # stream puts on its first and last chunk (the trim is off).
+    with _CbClock(cbm) as gclock:
+        one = model.generate(CB_TEXT, rng=keys[0], **tts._prime_conditionals())
+    one = tts._apply_fades(one, fade_in=True, fade_out=True)
+    streamed = torch.cat(pieces)
+    s_toks = torch.cat([c[0][0] for c in sclock.chunks])
+    g_toks = torch.cat([c[0][0] for c in gclock.chunks])
+    n = one.shape[0] // model.cfg.codec.hop - 1  # decoded frames after frame 0
+    # The windows vocode (bf16 convolutions over other lengths) round apart
+    # from the one-shot vocode: 4 bf16 ulps of the peak.
+    tol = 2.0 ** -6 * one.abs().max().item()
+    err = (streamed - one).abs().max().item() if streamed.shape == one.shape else float("inf")
+    n_chunks = len(pieces)
+    out["d_stream"] = {
+        "first_chunk_s": first_s, "chunks": n_chunks, "stream_wall_s": stream_wall,
+        "samples": int(streamed.shape[0]),
+        "tokens_equal_generate": bool(torch.equal(s_toks[:n], g_toks[:n])),
+        "max_abs_err_vs_generate": err, "tol": tol}
+    if not out["d_stream"]["tokens_equal_generate"] or not err <= tol or n_chunks < 2:
+        raise AssertionError(f"chatterbox stream(): {out['d_stream']}")
+    log(f"phase 10 d_stream ({smi}): {json.dumps(out['d_stream'])}")
+    tts.close()
+
+    # -- e. int4 ------------------------------------------------------------------
+    tts = TTSFactory.get_tts_instance("chatterbox", max_chars_per_segment=400,
+                                      max_iterations=1, **{**common, "quantization": "int4"})
+    tts.trim_silence = False
+    _zero(kmods)
+    with _CbClock(cbm) as clock:
+        t0 = time.perf_counter()
+        result = tts.generate(CB_TEXT)
+        torch.cuda.synchronize()
+        ewall = time.perf_counter() - t0
+    e_launches = _launches(kmods)
+    steps = clock.n("_decode_chunk") * cbm.CHUNK
+    e_want = _cb_want(layers, clock.n("_prefill"), steps, int4=True)
+    if result is None or e_launches != e_want:
+        raise AssertionError(f"chatterbox int4: launches {e_launches} vs {e_want}")
+    out["e_int4"] = {"wall_s": ewall, "audio_s": result.duration_sec,
+                     "rtf": result.duration_sec / ewall, "decode_steps": steps,
+                     "int4_launches_per_step": 5 * layers,
+                     "decode_ms_per_step": clock.ms("_decode_chunk") / steps,
+                     "launches": e_launches, "note": "one run, no warm-up"}
+    log(f"phase 10 e_int4 ({smi}): {json.dumps(out['e_int4'])}")
+    tts.close()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     parser.add_argument("--parent", default=None,
@@ -1840,6 +2458,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_prefill(attn, gen), check_decode(dec, gen),
                check_w8a8(qz, w8, gen, parent_w8), check_int4(qz, i4, gen, parent_i4)]
+    cb_cases = check_chatterbox_shapes(attn, dec, qz, w8, i4, gen)
+    for k in kernels:
+        k["chatterbox_cases"] = cb_cases[k["name"]]
     for k in kernels:
         log(f"phase 2 {k['name']}: max_abs_err {k['max_abs_err']:.3g} (tol {k['tol']}), "
             f"kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
@@ -1853,6 +2474,8 @@ def main(argv=None) -> int:
             log(f"  splits {k['splits']}, full-cache bound {k['full_cache_bound_ms']:.5f} ms, "
                 f"f8 cache {k['f8_cache_ms']:.4f} ms, at the main path's slots "
                 f"{json.dumps(k['at_main_path_slots'])}")
+        for case in k["chatterbox_cases"]:
+            log(f"  chatterbox case {json.dumps(case)}")
 
     for quantization, w8a8 in ((None, False), ("int4", False), ("int8", True)):
         ref = check_against_cpu(qmodel, quantization, w8a8)
@@ -1874,6 +2497,10 @@ def main(argv=None) -> int:
     serve_path = run_serving_path(qmodel, kmods, build_dir, smi, gen_path)
     log(f"phase 9 serving: every part passed in {time.perf_counter() - t0:.1f} s, peak "
         f"{serve_path['peak_mem_gb']:.2f} GB")
+    t0 = time.perf_counter()
+    cb_path = run_chatterbox_path(kmods, build_dir, smi)
+    log(f"phase 10 chatterbox: every part passed in {time.perf_counter() - t0:.1f} s, peak "
+        f"{cb_path['peak_mem_gb']:.2f} GB")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -1889,6 +2516,12 @@ def main(argv=None) -> int:
             "slot_batch": serve_path["a_slot_batch"]["launches"][k["name"]],
             "speculative": serve_path["b_speculative"]["launches"][k["name"]],
             "served_generate": serve_path["c_served_generate"]["launches"][k["name"]]}
+        k["launches_chatterbox"] = {
+            "a_one_segment": cb_path["a_one_segment"]["launches"][k["name"]],
+            "b_candidates": cb_path["b_candidates"]["launches"][k["name"]],
+            "c_served": cb_path["c_serving"]["served"]["launches"][k["name"]],
+            "c_lockstep": cb_path["c_serving"]["lockstep"]["launches"][k["name"]],
+            "e_int4": cb_path["e_int4"]["launches"][k["name"]]}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

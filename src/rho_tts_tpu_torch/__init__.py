@@ -8,9 +8,11 @@ Qwen3-TTS path end to end: ``TTSFactory`` -> the ``BaseTTS`` engine
 speed/pitch, file output, streaming) -> the ``QwenTTS`` provider (named
 speakers and voice cloning) -> ``QwenTTSModel`` (prompt -> prefill ->
 chunked decode -> vocoder), with weight-only int8 or int4 talker weights or
-w8a8 prefill, native checkpoints and the HF safetensors loader, and
-hand-written CUDA kernels for every kernel of the JAX package: prefill and
-decode attention, the w8a8 matmul and the int4 matmul (``csrc/``, bound in
+w8a8 prefill, native checkpoints and the HF safetensors loader; the
+Chatterbox family (``ChatterboxTTS``: CFG-pair decode, voice cloning, the
+on-device watermark, candidates and CFG-pair serving); and hand-written
+CUDA kernels for every kernel of the JAX package: prefill and decode
+attention, the w8a8 matmul and the int4 matmul (``csrc/``, bound in
 ``ops/cuda/``).
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.

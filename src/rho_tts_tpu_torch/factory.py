@@ -4,15 +4,15 @@ Counterpart of ``rho_tts_tpu/factory.py``. Registration sources, in
 precedence order:
 
 1. explicit ``TTSFactory.register_provider`` calls,
-2. built-in providers: ``qwen`` (:class:`rho_tts_tpu_torch.providers.qwen.QwenTTS`),
-   registered lazily on first use,
+2. built-in providers: ``qwen`` (:class:`rho_tts_tpu_torch.providers.qwen.QwenTTS`)
+   and ``chatterbox``
+   (:class:`rho_tts_tpu_torch.providers.chatterbox.ChatterboxTTS`), registered
+   lazily on first use,
 3. ``rho_tts_tpu_torch.providers`` entry points (third-party plugin
    packages).
 
-``"chatterbox"`` is known but not ported (ROADMAP queue 1 item 10): asking
-for it raises ``NotImplementedError``. The JAX package's route to its
-subprocess isolation layer is not ported either, and nothing falls back
-to it.
+The JAX package's route to its subprocess isolation layer is not ported
+yet (ROADMAP queue 1 item 13), and nothing falls back to it.
 
 Capability parity: reference ``src/rho_tts/factory.py:43-176``.
 """
@@ -31,12 +31,7 @@ logger = logging.getLogger(__name__)
 #: Built-in provider name → (module, attribute) for lazy import.
 _BUILTINS: Dict[str, Tuple[str, str]] = {
     "qwen": ("rho_tts_tpu_torch.providers.qwen", "QwenTTS"),
-}
-
-#: Built-in providers of the JAX package that the port does not have yet.
-_UNPORTED: Dict[str, str] = {
-    "chatterbox": "the Chatterbox family (models/chatterbox, providers/chatterbox.py) is not "
-                  "ported yet: ROADMAP queue 1 item 10",
+    "chatterbox": ("rho_tts_tpu_torch.providers.chatterbox", "ChatterboxTTS"),
 }
 
 
@@ -89,16 +84,12 @@ class TTSFactory:
 
         Raises:
             ProviderNotFoundError: for unknown provider names.
-            NotImplementedError: for a built-in of the JAX package that is
-                not ported yet.
         """
         cls._register_default_providers()
 
         provider_cls = cls._providers.get(provider)
         if provider_cls is not None:
             return provider_cls(**kwargs)
-        if provider in _UNPORTED:
-            raise NotImplementedError(_UNPORTED[provider])
 
         raise ProviderNotFoundError(
             f"Unknown TTS provider: '{provider}'. "
@@ -131,14 +122,11 @@ class TTSFactory:
 
         Raises:
             ProviderNotFoundError: for unknown provider names.
-            NotImplementedError: for a built-in that is not ported yet.
         """
         cls._register_default_providers()
 
         if provider in cls._providers:
             return cls._providers[provider].provider_info()
-        if provider in _UNPORTED:
-            raise NotImplementedError(_UNPORTED[provider])
         raise ProviderNotFoundError(
             f"Unknown TTS provider: '{provider}'. "
             f"Available providers: {', '.join(cls.list_providers()) or '(none)'}."

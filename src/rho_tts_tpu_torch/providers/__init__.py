@@ -1,1 +1,1 @@
-"""TTS providers of the port (``qwen``)."""
+"""TTS providers of the port (``qwen``, ``chatterbox``)."""

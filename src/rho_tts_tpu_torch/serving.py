@@ -422,6 +422,10 @@ class ServingEngine:
             self.ring = self.max_prompt + self.max_frames + (2 * self.spec_k + 1) * (
                 self.gamma + 1)
 
+        self._start(seed, max_queue)
+
+    def _start(self, seed: int, max_queue: Optional[int]) -> None:
+        """The engine's CUDA stream, its device state and its scheduler."""
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)

@@ -6,15 +6,17 @@ i's Gumbel noise a pure function of ``(seeds[i], frame)`` through
 tokens as the JAX package for the same seeds. Covered:
 
 * ``PRNGKey(seed)``: the raw threefry key ``[seed >> 32, seed & 0xFFFFFFFF]``;
-* ``fold_in(key, data)``: ``threefry2x32(key, [0, data])``;
+* ``fold_in(key, data)``: ``threefry2x32(key, [0, data])``, vectorised
+  over a tensor of ``data`` (one key per entry, as ``jax.vmap(fold_in)``);
 * ``split(key, num)``: key i is ``threefry2x32(key, [i >> 32, i & 0xFFFFFFFF])``
   (the "fold-like" split of ``jax_threefry_partitionable=True``), so
   ``split(key, n)[i] == fold_in(key, i)``;
 * ``random_bits(key, shape)`` as generated under
   ``jax_threefry_partitionable=True`` (the default of jax 0.9): element n
   is ``x0 ^ x1`` of ``threefry2x32(key, [n >> 32, n & 0xFFFFFFFF])``;
-* ``uniform(key, shape, minval, maxval)`` for float32 and ``gumbel(key,
-  shape)`` (the default "low" mode: ``-log(-log(uniform(tiny, 1)))``);
+* ``uniform(key, shape, minval, maxval)`` for float32, ``bernoulli(key, p,
+  shape)`` (``uniform(key, shape) < p``) and ``gumbel(key, shape)`` (the
+  default "low" mode: ``-log(-log(uniform(tiny, 1)))``);
 * ``randint(key, shape, minval, maxval)`` for int32: two 32-bit draws from
   ``split(key)``, reduced modulo the span in uint32 arithmetic.
 
@@ -98,6 +100,12 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     # sum once to float32 gives the same bits.
     scaled = (floats.double() * span + float(lo)).to(torch.float32)
     return torch.clamp_min(scaled, float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a float ``p``, bit for bit:
+    ``uniform(key, shape) < p`` in float32."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

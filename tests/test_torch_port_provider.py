@@ -165,7 +165,7 @@ def test_factory_returns_the_port_provider():
                                       model_path="tiny-CustomVoice")
     assert isinstance(tts, TQwenTTS) and tts.device == "cpu"
     assert tts.sample_rate == TPRESETS["tiny"].codec.sample_rate
-    assert TTSFactory.list_providers() == ["qwen"]
+    assert TTSFactory.list_providers() == ["chatterbox", "qwen"]
     info = TTSFactory.get_provider_info("qwen")
     assert info.supports_voice_cloning and "Vivian" in [v.id for v in info.builtin_voices]
     assert TQwenTTS().device == "cuda"  # the port's default device
@@ -192,5 +192,11 @@ def test_unported_options_raise(kw, item):
 
 
 def test_chatterbox_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        TTSFactory.get_tts_instance("chatterbox", device="cpu")
+    """The factory's "chatterbox" route builds the port's ``ChatterboxTTS``
+    (its parity with the JAX provider is held in
+    ``test_torch_port_chatterbox_provider.py``); nothing raises any more."""
+    from rho_tts_tpu_torch.providers.chatterbox import ChatterboxTTS
+
+    tts = TTSFactory.get_tts_instance("chatterbox", device="cpu", implementation="tiny")
+    assert isinstance(tts, ChatterboxTTS) and tts.model.device.type == "cpu"
+    assert TTSFactory.get_provider_info("chatterbox").name == "chatterbox"

@@ -208,7 +208,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import rho_tts_tpu_torch\n"
         "from rho_tts_tpu_torch import TTSFactory, BaseTTS\n"
         "import rho_tts_tpu_torch.providers.qwen, rho_tts_tpu_torch.ops.dsp\n"
-        "assert TTSFactory.list_providers() == ['qwen']\n"
+        "assert TTSFactory.list_providers() == ['chatterbox', 'qwen']\n"
         "for m in pkgutil.walk_packages(rho_tts_tpu_torch.__path__, 'rho_tts_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
