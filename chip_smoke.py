@@ -60,7 +60,17 @@ Phases, each fatal on failure:
     under ``set_sync_debug_mode("error")``) beside the lockstep loop;
     ``stream()``; int4 (see :func:`run_chatterbox_path`), each part logged
     as ``phase 10 <part> (<card>): {...}``. Each kernel's entry gains
-    ``launches_chatterbox``.
+    ``launches_chatterbox``;
+11. training (see :func:`run_training_path`): the tiny preset at fp32 on
+    the card against the CPU (loss, gradients, one step of each trainer);
+    a full fine-tune of the 1.7B (2 + 5 ``train_step``s, batch 4 x (64 text
+    tokens + 256 frames), then the train state saved, restored and held bit
+    for bit); LoRA rank 8 on ``wqkv`` / ``wo`` (2 + 5 steps, the base frozen,
+    then ``TTSFactory.get_tts_instance("qwen", ..., lora_path=...)`` on
+    phase 7's texts); ``distill_draft`` of a ``draft-1.7B`` toward the 1.7B
+    int8 target (16 texts, 96 frames, 20 steps) and one speculative decode
+    with it; each part logged as ``phase 11 <part> (<card>): {...}``. Each
+    kernel's entry gains ``launches_training``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -81,6 +91,7 @@ import gc
 import importlib
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2409,6 +2420,418 @@ def run_chatterbox_path(kmods, build_dir: str, smi: str, device: str = "cuda") -
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training and adaptation
+# ---------------------------------------------------------------------------
+
+# Qwen3-TTS 1.7B at full width and depth (hidden 2048, 28 layers, 16 / 8
+# heads of 128, ffn 6144, 4 codebooks), dense bf16, random weights.
+TRAIN_PRESET = "1.7B"
+DRAFT_PRESET = "draft-1.7B"
+LORA_MODEL_PATH = "Qwen3-TTS-12Hz-1.7B-CustomVoice"  # resolves to TRAIN_PRESET
+TRAIN_SEED = 789  # QwenTTS's default seed: its random base is the trained one
+TRAIN_SHAPE = (4, 64, 256)  # batch, text tokens, frames
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+LORA_RANK = 8
+DISTILL = dict(n_texts=16, seq_frames=96, batch_size=8, steps=20, learning_rate=2e-3)
+# Card vs CPU at fp32, TF32 off: the orders of the f32 sums differ. A
+# gradient's error is held against its leaf's largest entry (at least 1): an
+# embedding row sums every position that reads it, on the card in atomics'
+# order, so a row that cancels to ~3e-4 carries the rounding of summands up
+# to the leaf's maximum (on an H100: 1.5e-6 where that maximum is 1.6).
+# Params after one AdamW step at lr 1e-3: 1% of lr, because the first step
+# is g / (|g| + 1e-8) per element, which turns a gradient's rounding where
+# |g| ~ 1e-8 into a visible fraction of the step (on an H100: 1.8e-6 after
+# train_step, 4.2e-6 after distill_step).
+TRAIN_TOL = {"loss_rel": 1e-5, "grad_atol_of_leaf_max": 2e-6, "grad_rtol": 1e-4,
+             "param_atol": 1e-5}
+
+
+def _train_batch(cfg, shape, device, seed=0):
+    """A teacher-forcing batch drawn from a seeded numpy generator."""
+    import numpy as np
+
+    b, tt, tc = shape
+    rng = np.random.default_rng(seed)
+    return {
+        "text_ids": torch.from_numpy(rng.integers(0, cfg.text_vocab, (b, tt))).to(device),
+        "codes": torch.from_numpy(rng.integers(0, cfg.codec.codebook_size,
+                                               (b, tc, cfg.codec.n_codebooks))).to(device),
+        "codes_mask": torch.ones((b, tc), dtype=torch.bool, device=device),
+    }
+
+
+def _excess(ours, ref, atol: float, rtol: float = 0.0, names=None, of_max=False) -> float:
+    """Largest ``|ours - ref| - rtol * |ref|`` over tensor lists, in units of
+    the leaf's largest ``|ref|`` (at least 1) when ``of_max``; <= atol holds."""
+    worst, where = 0.0, {}
+    for i, (o, r) in enumerate(zip(ours, ref)):
+        o, r = o.detach().double().cpu(), r.detach().double().cpu()
+        e = ((o - r).abs() - rtol * r.abs()).flatten()
+        if of_max:
+            e = e / max(1.0, float(r.abs().max()))
+        j = int(e.argmax())
+        where[names[i] if names else i] = (float(e[j]), float(r.flatten()[j]),
+                                           float(r.abs().max()))
+        worst = max(worst, float(e[j]))
+    if worst > atol:
+        bad = {k: v for k, v in where.items() if v[0] > atol}
+        raise AssertionError(f"card vs CPU: {worst} over atol {atol} (rtol {rtol}); "
+                             f"leaf: (excess, ref there, max |ref|) {bad}")
+    return worst
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _train_card_vs_cpu(device: str) -> dict:
+    """a. The tiny preset at fp32 on the card against the CPU, same params and
+    batch: ``_forward_loss`` and its gradients, one ``train_step``, one
+    ``lora_train_step`` and one ``distill_step``."""
+    import dataclasses
+
+    from rho_tts_tpu_torch.models import checkpoint as ckpt
+    from rho_tts_tpu_torch.models.qwen import PRESETS, QwenTTSModel
+    from rho_tts_tpu_torch.models.qwen import distill, lora, train
+    from rho_tts_tpu_torch.models.qwen.model import init_params
+
+    tol = TRAIN_TOL
+    base = PRESETS["tiny"]
+    cfg = dataclasses.replace(base, talker=dataclasses.replace(base.talker, dtype=torch.float32))
+    out = {"tol": tol}
+    cpu = init_params(cfg, 0, "cpu")
+    dev = _tree_map(lambda t: t.to(device), cpu)
+    batches = {d: _train_batch(cfg, (2, 8, 16), d, seed=1) for d in ("cpu", device)}
+    trees = {"cpu": cpu, device: dev}
+
+    res = {}
+    for d, p in trees.items():
+        res[d] = train._value_and_grad(lambda: train._forward_loss(p, cfg, batches[d]),
+                                       train.leaves(p))
+    out["loss_rel_err"] = _rel(res[device][0], res["cpu"][0])
+    if not out["loss_rel_err"] <= tol["loss_rel"]:
+        raise AssertionError(f"train card vs CPU: loss {out['loss_rel_err']}")
+    names = list(ckpt.flatten(cpu))
+    out["grad_excess"] = _excess(res[device][1], res["cpu"][1], tol["grad_atol_of_leaf_max"],
+                                 tol["grad_rtol"], names, of_max=True)
+
+    opt = train.make_optimizer(1e-3)
+    losses = {}
+    for d, p in trees.items():
+        _, _, losses[d] = train.train_step(p, opt.init(p), batches[d], cfg, opt)
+    out["train_step_loss_rel_err"] = _rel(losses[device], losses["cpu"])
+    out["train_step_param_err"] = _excess(train.leaves(dev), train.leaves(cpu), tol["param_atol"],
+                                          names=names)
+
+    adapters = {"cpu": lora.init_lora(cfg, cpu, rank=4, seed=2)}
+    adapters[device] = _tree_map(lambda t: t.to(device), adapters["cpu"])
+    for d, p in trees.items():
+        _, _, losses[d] = lora.lora_train_step(p, adapters[d], opt.init(adapters[d]), batches[d],
+                                               cfg, opt)
+    out["lora_step_loss_rel_err"] = _rel(losses[device], losses["cpu"])
+    out["lora_step_param_err"] = _excess(train.leaves(adapters[device]),
+                                         train.leaves(adapters["cpu"]), tol["param_atol"])
+
+    models = {"cpu": (QwenTTSModel(cfg, params=init_params(cfg, 3, "cpu"), device="cpu"),
+                      QwenTTSModel(cfg, params=init_params(cfg, 4, "cpu"), device="cpu"))}
+    models[device] = tuple(QwenTTSModel(cfg, params=_tree_map(lambda t: t.to(device), m.params),
+                                        device=device) for m in models["cpu"])
+    batch = distill.build_batches(models["cpu"][0], distill.make_corpus(4, seed=0), 12, 4)[0]
+    dopt = train.AdamW(1e-3, weight_decay=0.0)
+    overlaps = {}
+    for d, (target, draft) in models.items():
+        b = {k: v.to(d) for k, v in batch.items()}
+        _, _, losses[d], overlaps[d] = distill.distill_step(
+            draft.params, dopt.init(draft.params), target.params, b, cfg, cfg,
+            torch.tensor(0.9, device=d), 5, dopt)
+    out["distill_step_loss_rel_err"] = _rel(losses[device], losses["cpu"])
+    out["distill_step_overlap_rel_err"] = _rel(overlaps[device], overlaps["cpu"])
+    out["distill_step_param_err"] = _excess(train.leaves(models[device][1].params),
+                                            train.leaves(models["cpu"][1].params),
+                                            tol["param_atol"])
+    for key in ("train_step_loss_rel_err", "lora_step_loss_rel_err",
+                "distill_step_loss_rel_err", "distill_step_overlap_rel_err"):
+        if not out[key] <= tol["loss_rel"]:
+            raise AssertionError(f"train card vs CPU: {key} {out[key]}")
+    return out
+
+
+def _timed_steps(step, kmods, warmup: int, timed: int) -> dict:
+    """``warmup`` then ``timed`` calls of ``step() -> loss``: CUDA events per
+    timed step, the wall of the timed ones, every loss (fetched once at the
+    end), the kernels' launches over all of them."""
+    _zero(kmods)
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    events = []
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step())
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).float().cpu().tolist()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: losses {losses} not finite and falling")
+    return {"ms_per_step": sum(s.elapsed_time(e) for s, e in events) / timed,
+            "wall_ms_per_step": wall / timed * 1e3, "losses": losses,
+            "launches": _launches(kmods)}
+
+
+def _no_kernels(name, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{name}: kernel launches {launches}, expected none")
+
+
+def run_training_path(qmodel, kmods, build_dir: str, smi: str, device: str = "cuda") -> dict:
+    """Phase 11: training and adaptation at full width and depth.
+
+    a. the tiny preset at fp32 on the card against the CPU (``TRAIN_TOL``);
+    b. a full fine-tune of the 1.7B (dense bf16, ``make_optimizer()``'s
+       AdamW): 2 + 5 ``train_step``s on one fixed batch of 4 x (64 text
+       tokens + 256 frames x 4 codebooks), then ``save_train_state`` ->
+       ``restore_train_state``, held bit for bit;
+    c. LoRA rank 8 on ``wqkv`` and ``wo``: 2 + 5 ``lora_train_step``s, the
+       base frozen bit for bit, the merge against ``base + a @ b``; then
+       ``save_lora`` and ``TTSFactory.get_tts_instance("qwen", ...,
+       lora_path=dir, quantization="int8")`` on phase 7's 5 texts, a warm-up
+       and a timed ``generate()`` with exact launch counts;
+    d. ``distill_draft`` of a ``draft-1.7B`` toward the 1.7B int8 target,
+       then one ``speculative_generate_codes`` with the distilled draft.
+
+    The training steps launch none of the four kernels (the cache-less
+    forward is plain PyTorch, as in JAX); the LoRA-served ``generate()`` and
+    the distillation rollouts launch the attention kernels.
+    """
+    import shutil
+
+    from rho_tts_tpu_torch import TTSFactory
+    from rho_tts_tpu_torch.models import checkpoint as ckpt
+    from rho_tts_tpu_torch.models import quantization as qz
+    from rho_tts_tpu_torch.models.qwen import PRESETS, QwenTTSModel
+    from rho_tts_tpu_torch.models.qwen import distill, lora, train
+    from rho_tts_tpu_torch.models.qwen.model import init_params
+    from rho_tts_tpu_torch.models.qwen.speculative import speculative_generate_codes
+    from rho_tts_tpu_torch.utils import prng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"card": smi}
+    work = os.path.join(build_dir, "phase11")
+    os.makedirs(work, exist_ok=True)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- a. card vs CPU ----------------------------------------------------------
+    fresh()
+    out["a_card_vs_cpu"] = _train_card_vs_cpu(device)
+    log(f"phase 11 a_card_vs_cpu ({smi}): {json.dumps(out['a_card_vs_cpu'])}")
+
+    cfg = PRESETS[TRAIN_PRESET]
+    b, tt, tc = TRAIN_SHAPE
+    batch = _train_batch(cfg, TRAIN_SHAPE, device)
+
+    # -- b. full fine-tune ------------------------------------------------------
+    fresh()
+    optimizer = train.make_optimizer()
+    params, state = train.init_train_state(cfg, seed=TRAIN_SEED, optimizer=optimizer,
+                                           device=device)
+    n_params = sum(t.numel() for t in train.leaves(params))
+    n_talker = sum(t.numel() for t in train.leaves(params["talker"]))
+
+    def full_step():
+        nonlocal params, state
+        params, state, loss = train.train_step(params, state, batch, cfg, optimizer)
+        return loss
+
+    part = _timed_steps(full_step, kmods, TRAIN_WARMUP, TRAIN_TIMED)
+    _no_kernels("train_step", part["launches"])
+    part.update(
+        preset=cfg.name, batch=b, text_tokens=tt, frames=tc, codebooks=cfg.codec.n_codebooks,
+        params=n_params, talker_params=n_talker, lr=optimizer.learning_rate,
+        weight_decay=optimizer.weight_decay,
+        frames_per_s=b * tc / (part["ms_per_step"] / 1e3),
+        talker_flop_per_step=6.0 * n_talker * b * (tt + tc),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    state_dir = os.path.join(work, "train_state")
+    step_count = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.save_train_state(state_dir, params, state, step_count)
+    part["save_s"] = time.perf_counter() - t0
+    part["state_bytes"] = sum(os.path.getsize(os.path.join(state_dir, f))
+                              for f in os.listdir(state_dir))
+    t0 = time.perf_counter()
+    rparams, rstate, rstep = train.restore_train_state(state_dir, cfg, optimizer, device=device)
+    torch.cuda.synchronize()
+    part["restore_s"] = time.perf_counter() - t0
+    a, r = ckpt.flatten(params), ckpt.flatten(rparams)
+    same = list(a) == list(r) and all(torch.equal(a[k], r[k]) for k in a) and rstep == step_count
+    for p, rp in zip(train.leaves(params), train.leaves(rparams)):
+        s, rs = state.state[p], rstate.state[rp]
+        same = same and s.keys() == rs.keys() and all(torch.equal(s[k], rs[k]) for k in s)
+    if not same:
+        raise AssertionError("train state: the restored state differs from the saved one")
+    part.update(restored_bit_equal=True,
+                peak_gb_with_restore=torch.cuda.max_memory_allocated() / 1e9)
+    shutil.rmtree(state_dir)
+    out["b_full_finetune"] = part
+    log(f"phase 11 b_full_finetune ({smi}): {json.dumps(part)}")
+    del params, state, rparams, rstate, a, r, p, rp, s, rs
+
+    # -- c. LoRA -----------------------------------------------------------------
+    fresh()
+    base = init_params(cfg, TRAIN_SEED, device)
+    snapshot = {k: v.clone() for k, v in ckpt.flatten(base).items()}
+    adapters, lstate, loptimizer = lora.init_lora_train_state(cfg, base, rank=LORA_RANK)
+    merged0 = lora.apply_lora(base, adapters)["talker"]["blocks"]
+    zero_merge_equal = all(torch.equal(merged0[k], base["talker"]["blocks"][k])
+                           for k in adapters)
+    if not zero_merge_equal:
+        raise AssertionError("LoRA: the zero-init merge differs from the base")
+    del merged0
+
+    def lora_step():
+        nonlocal adapters, lstate
+        adapters, lstate, loss = lora.lora_train_step(base, adapters, lstate, batch, cfg,
+                                                      loptimizer)
+        return loss
+
+    part = _timed_steps(lora_step, kmods, TRAIN_WARMUP, TRAIN_TIMED)
+    _no_kernels("lora_train_step", part["launches"])
+    part.update(rank=LORA_RANK, targets=list(adapters), adapter_params=lora.n_lora_params(adapters),
+                frames_per_s=b * tc / (part["ms_per_step"] / 1e3),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, zero_init_merge_bit_equal=True)
+    if not all(torch.equal(v, snapshot[k]) for k, v in ckpt.flatten(base).items()):
+        raise AssertionError("LoRA: the base changed")
+    part["base_bit_equal_after_steps"] = True
+    del snapshot
+    w = base["talker"]["blocks"]["wqkv"]
+    direct = (w.float() + torch.bmm(adapters["wqkv"]["a"], adapters["wqkv"]["b"])).to(w.dtype)
+    merged = lora.apply_lora(base, adapters)["talker"]["blocks"]["wqkv"]
+    err = (merged.float() - direct.float()).abs().max().item()
+    # The f32 sums may round apart by one bf16 ulp of the largest weight.
+    tol = 2.0 ** -7 * merged.float().abs().max().item()
+    if not err <= tol or torch.equal(merged, w):
+        raise AssertionError(f"LoRA: merged wqkv vs base + a @ b: {err} > {tol}")
+    part.update(merged_vs_direct_max_abs_err=err, merged_vs_direct_tol=tol,
+                merged_bit_equal_direct=bool(torch.equal(merged, direct)))
+    del direct
+    adapter_dir = os.path.join(work, "adapter")
+    lora.save_lora(adapter_dir, adapters, meta={"scale": 1.0, "voice": "phase11"})
+    part["adapter_bytes"] = os.path.getsize(os.path.join(adapter_dir, "adapter.pt"))
+
+    min_audio_sec = 1000.0  # EOS masked in every frame: exact launch counts
+    tts = TTSFactory.get_tts_instance(
+        "qwen", speaker="Vivian", model_path=LORA_MODEL_PATH, quantization="int8",
+        device=device, seed=TRAIN_SEED, lora_path=adapter_dir, min_audio_sec=min_audio_sec)
+    tts.silence_threshold_db = SILENCE_DB
+    model = tts._load_model()
+    want_q = qz.quantize_weight(merged)["q"]
+    if not (torch.equal(model.params["text_embed"], base["text_embed"])
+            and torch.equal(model.params["talker"]["blocks"]["wqkv"]["q"], want_q)):
+        raise AssertionError("LoRA provider: not built on the trained base plus the adapter")
+    del merged, want_q, base, w
+    out_base = os.path.join(work, "lora_out")
+    tts.generate(TEXTS, output_path=out_base)  # warm-up
+    torch.cuda.synchronize()
+    _zero(kmods)
+    with StageClock(qmodel) as clock:
+        t0 = time.perf_counter()
+        results = tts.generate(TEXTS, output_path=out_base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _launches(kmods)
+    layers = cfg.talker.layers
+    steps = len(clock.events["decode_chunk"]) * qmodel._chunk()
+    want = {"prefill_gqa_attention": layers * len(clock.events["prefill"]),
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+    if launches != want or len(results) != len(TEXTS) \
+            or not all(bool(torch.isfinite(r.audio).all()) for r in results):
+        raise AssertionError(f"LoRA generate(): launches {launches} vs {want}")
+    audio_s = sum(r.duration_sec for r in results)
+    part["generate"] = {"provider_base_is_the_trained_base": True, "texts": len(TEXTS),
+                        "decode_steps": steps, "wall_s": wall, "audio_s": audio_s,
+                        "rtf": audio_s / wall, "decode_ms": clock.ms("decode_chunk"),
+                        "launches": launches}
+    tts.close()
+    out["c_lora"] = part
+    log(f"phase 11 c_lora ({smi}): {json.dumps(part)}")
+    del adapters, lstate, tts, model
+
+    # -- d. distillation -----------------------------------------------------------
+    fresh()
+    target = QwenTTSModel(cfg, seed=TRAIN_SEED, quantization="int8", device=device)
+    draft = QwenTTSModel(PRESETS[DRAFT_PRESET], seed=1, device=device)
+    rollouts, steps_ev = {}, []
+    inner_build, inner_step = distill.build_batches, distill.distill_step
+
+    def build_batches(*args, **kwargs):
+        _zero(kmods)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with StageClock(qmodel) as clock:
+            batches = inner_build(*args, **kwargs)
+        torch.cuda.synchronize()
+        rollouts.update(seconds=time.perf_counter() - t0, batches=len(batches),
+                        prefills=len(clock.events["prefill"]),
+                        decode_steps=len(clock.events["decode_chunk"]) * qmodel._chunk(),
+                        launches=_launches(kmods))
+        _zero(kmods)
+        return batches
+
+    def distill_step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = inner_step(*args, **kwargs)
+        end.record()
+        steps_ev.append((start, end))
+        return res
+
+    distill.build_batches, distill.distill_step = build_batches, distill_step
+    try:
+        t0 = time.perf_counter()
+        stats = distill.distill_draft(target, draft, log_every=0, **DISTILL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        distill.build_batches, distill.distill_step = inner_build, inner_step
+    step_launches = _launches(kmods)
+    _no_kernels("distill_step", step_launches)
+    layers = cfg.talker.layers
+    want = {"prefill_gqa_attention": layers * rollouts["prefills"],
+            "decode_gqa_attention": layers * rollouts["decode_steps"],
+            "w8a8_matmul": 0, "int4_matmul": 0}
+    if rollouts["launches"] != want or rollouts["prefills"] != rollouts["batches"]:
+        raise AssertionError(f"distill rollouts: launches {rollouts['launches']} vs {want}")
+    ov = stats["overlaps"]
+    if not all(math.isfinite(x) for x in stats["losses"] + ov) or not ov[-1] > ov[0]:
+        raise AssertionError(f"distill: overlap did not rise: {ov}")
+    codes, spec = speculative_generate_codes(target, draft, TEXTS[0], speaker="Vivian",
+                                             gamma=4, rng=prng.PRNGKey(0, device=device))
+    out["d_distill"] = {
+        "target": f"{cfg.name} int8", "draft": DRAFT_PRESET, **DISTILL,
+        "wall_s": wall, "rollout_s": rollouts["seconds"], "rollout_batches": rollouts["batches"],
+        "rollout_decode_steps": rollouts["decode_steps"], "rollout_launches": rollouts["launches"],
+        "step_ms": sum(s.elapsed_time(e) for s, e in steps_ev) / len(steps_ev),
+        "step_launches": step_launches,
+        "loss_first": stats["losses"][0], "loss_last": stats["losses"][-1],
+        "overlap_first": ov[0], "overlap_last": ov[-1],
+        "speculative": {"frames": int(codes.shape[0]), "rounds": spec["rounds"],
+                        "frames_per_round": spec["tokens_per_round"]},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"phase 11 d_distill ({smi}): {json.dumps(out['d_distill'])}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     parser.add_argument("--parent", default=None,
@@ -2501,6 +2924,9 @@ def main(argv=None) -> int:
     cb_path = run_chatterbox_path(kmods, build_dir, smi)
     log(f"phase 10 chatterbox: every part passed in {time.perf_counter() - t0:.1f} s, peak "
         f"{cb_path['peak_mem_gb']:.2f} GB")
+    t0 = time.perf_counter()
+    train_path = run_training_path(qmodel, kmods, build_dir, smi)
+    log(f"phase 11 training: every part passed in {time.perf_counter() - t0:.1f} s")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -2522,6 +2948,12 @@ def main(argv=None) -> int:
             "c_served": cb_path["c_serving"]["served"]["launches"][k["name"]],
             "c_lockstep": cb_path["c_serving"]["lockstep"]["launches"][k["name"]],
             "e_int4": cb_path["e_int4"]["launches"][k["name"]]}
+        k["launches_training"] = {
+            "train_step": train_path["b_full_finetune"]["launches"][k["name"]],
+            "lora_step": train_path["c_lora"]["launches"][k["name"]],
+            "lora_generate": train_path["c_lora"]["generate"]["launches"][k["name"]],
+            "distill": train_path["d_distill"]["rollout_launches"][k["name"]]
+            + train_path["d_distill"]["step_launches"][k["name"]]}
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

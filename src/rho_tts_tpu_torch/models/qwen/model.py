@@ -324,11 +324,14 @@ class QwenTTSModel(nn.Module):
     quantized stay as they are); without it, the model reports the
     quantization its params already carry. ``model_path``, a checkpoint
     directory, supplies its ``tokenizer.json`` when it has one.
+    ``lora_path``, an adapter directory (``models.qwen.lora.save_lora``),
+    is merged into the dense weights before any quantization; a quantized
+    base raises ``ValueError``.
     """
 
     def __init__(self, config: QwenTTSConfig, params: Optional[Params] = None, seed: int = 0,
                  quantization: Optional[str] = None, device=None,
-                 model_path: Optional[str] = None):
+                 model_path: Optional[str] = None, lora_path: Optional[str] = None):
         super().__init__()
         self.config = config
         self.device = torch.device(device or "cuda")
@@ -336,6 +339,20 @@ class QwenTTSModel(nn.Module):
         self.tokenizer = load_tokenizer(model_path, vocab_size=config.text_vocab)
         if params is None:
             params = init_params(config, seed, self.device)
+        if lora_path is not None:
+            # Merge BEFORE quantization: adapters train in f32 against the
+            # dense base; a quantized export cannot be merged into.
+            from .lora import apply_lora, load_lora
+
+            if _tree_quantization(params) is not None:
+                raise ValueError(
+                    "lora_path requires a DENSE base (merge precedes "
+                    "quantization); load the un-quantized export instead"
+                )
+            lora, meta = load_lora(lora_path, device=self.device)
+            # Ordinary tensors without autograd history, never inference tensors.
+            with torch.inference_mode(False), torch.no_grad():
+                params = apply_lora(params, lora, scale=float(meta.get("scale", 1.0)))
         if quantization in ("int8", "int4"):
             params = {**params, "talker": quantize_stack(params["talker"], quantization)}
         elif quantization not in (None, "none"):
@@ -350,7 +367,7 @@ class QwenTTSModel(nn.Module):
 
     @classmethod
     def from_pretrained(cls, model_path: str, seed: int = 0, quantization: Optional[str] = None,
-                        device=None) -> "QwenTTSModel":
+                        device=None, lora_path: Optional[str] = None) -> "QwenTTSModel":
         """Build from a native checkpoint dir, an HF safetensors dir or a preset name.
 
         * A native checkpoint (:meth:`save_checkpoint`) restores the full
@@ -364,6 +381,9 @@ class QwenTTSModel(nn.Module):
           (``models.qwen.weights``), quantizing on the host.
         * Anything else resolves a config (a preset name, or the size named
           in the path) and runs with random weights from ``seed``.
+
+        ``lora_path`` merges an adapter into the dense weights before
+        quantizing (see the constructor).
         """
         from .. import checkpoint as ckpt_lib
         from .weights import load_checkpoint
@@ -384,14 +404,14 @@ class QwenTTSModel(nn.Module):
                     f"cannot serve as {quantization!r}"
                 )
             model = cls(cfg, params=params, seed=seed, quantization=requested or saved_quant,
-                        device=device, model_path=path)
+                        device=device, model_path=path, lora_path=lora_path)
             model.variant = manifest.get("variant")
             return model
 
         cfg = resolve_config(path)
         params = load_checkpoint(path, cfg, quantization=quantization, device=device)
         return cls(cfg, params=params, seed=seed, quantization=quantization, device=device,
-                   model_path=path)
+                   model_path=path, lora_path=lora_path)
 
     def save_checkpoint(self, path: str) -> None:
         """Export the parameter tree as a native serving checkpoint.

@@ -18,6 +18,10 @@ plain versions. A T > 1 forward over a used cache (speculative verify) is
 plain masked attention, as in the JAX package, whose einsum branch computes
 it outside any Pallas kernel.
 
+The cache-less forward (``kv_caches=None``: training and distillation) is
+plain masked causal attention too, as JAX's is, and differentiable; the
+kernels have no backward and raise when reached under autograd.
+
 Unlike the JAX package, the stacked caches are updated IN PLACE: the
 caller's ``(L, B, S, Hkv, D)`` tensors are written and returned.
 """
@@ -139,6 +143,89 @@ def _split_qkv(qkv: torch.Tensor, cfg: TransformerConfig):
 
 
 # ---------------------------------------------------------------------------
+# The block's shared math (the cached and the cache-less forward)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope):
+    """Attention norm, the fused QKV matmul and RoPE: ``(q, k, v)``."""
+    h = rms_norm(x, params["attn_norm"], cfg.rms_eps)
+    qkv = qmm(h, params["wqkv"])
+    q, k, v = _split_qkv(qkv, cfg)
+    return _rotate(q, *rope), _rotate(k, *rope), v
+
+
+def _out_and_mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor,
+                 attn: torch.Tensor) -> torch.Tensor:
+    """Output projection and residual, then the SwiGLU MLP and residual."""
+    b, t, _ = x.shape
+    attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
+    x = x + qmm(attn, params["wo"])
+    h = rms_norm(x, params["mlp_norm"], cfg.rms_eps)
+    gate = F.silu(qmm(h, params["w_gate"]).float())
+    up = qmm(h, params["w_up"]).float()
+    return x + qmm((gate * up).to(x.dtype), params["w_down"])
+
+
+def _masked_attention(q, k, v, mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Plain GQA attention under a boolean key mask, JAX's einsum branch:
+    f32 scores and mix, masked scores filled with -1e30 (finite: a row with
+    every key masked averages all of them instead of turning NaN)."""
+    scores = _gqa_scores(q, k) * (1.0 / np.sqrt(cfg.head_dim))
+    probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    return _gqa_mix(probs, v)
+
+
+# ---------------------------------------------------------------------------
+# Cache-less block forward (training, distillation)
+# ---------------------------------------------------------------------------
+
+
+def _causal_mask(t: int, attn_mask: Optional[torch.Tensor], device) -> torch.Tensor:
+    """``(1 or B, 1, T, T)`` causal mask, gated by ``attn_mask`` ``(B, T)``."""
+    mask = torch.ones((t, t), dtype=torch.bool, device=device).tril()[None, None]
+    if attn_mask is not None:
+        mask = mask & attn_mask.bool()[:, None, None, :]
+    return mask
+
+
+def block_forward(
+    params: Params,
+    cfg: TransformerConfig,
+    x: torch.Tensor,  # (B, T, hidden)
+    positions: torch.Tensor,  # (B, T) RoPE positions
+    kv_cache=None,
+    cache_len=None,
+    attn_mask: Optional[torch.Tensor] = None,  # (B, T) validity of the tokens
+    key_valid=None,
+    fused_prefill: bool = False,
+    rope=None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One cache-less transformer block: plain causal attention over T.
+
+    Returns ``(output, (k, v))``, k after RoPE. Differentiable: the
+    attention is plain PyTorch, as JAX's is the einsum ``_gqa_scores`` /
+    softmax / ``_gqa_mix`` and never a Pallas kernel. ``rope`` (the cos/sin
+    tables of ``positions``) and ``mask`` (:func:`_causal_mask`) let
+    :func:`stack_forward` build them once for every layer. A ``kv_cache``
+    raises, as in JAX: cached attention is :func:`stack_forward`'s.
+    """
+    if kv_cache is not None:
+        raise ValueError(
+            "Cached attention moved to the stacked-cache path inside "
+            "stack_forward (_block_forward_cached); pass caches there."
+        )
+    if rope is None:
+        rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if mask is None:
+        mask = _causal_mask(x.shape[1], attn_mask, x.device)
+    q, k, v = _qkv(params, cfg, x, rope)
+    attn = _masked_attention(q, k, v, mask, cfg)
+    return _out_and_mlp(params, cfg, x, attn), (k, v)
+
+
+# ---------------------------------------------------------------------------
 # Cached block forward (prefill, decode, ring and speculative writes)
 # ---------------------------------------------------------------------------
 
@@ -218,12 +305,7 @@ def _block_forward_cached(
     prefill kernel runs over the fresh q/k/v.
     """
     b, t, _ = x.shape
-
-    h = rms_norm(x, params["attn_norm"], cfg.rms_eps)
-    qkv = qmm(h, params["wqkv"])
-    q, k, v = _split_qkv(qkv, cfg)
-    q = _rotate(q, *rope)
-    k = _rotate(k, *rope)
+    q, k, v = _qkv(params, cfg, x, rope)
 
     if isinstance(slot, int):
         ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
@@ -245,18 +327,8 @@ def _block_forward_cached(
     else:
         # T > 1 over a used cache (speculative verify): JAX computes it as
         # plain masked attention (its einsum branch), and so does the port.
-        scores = _gqa_scores(q, ck_all[layer]) * (1.0 / np.sqrt(cfg.head_dim))
-        probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
-        attn = _gqa_mix(probs, cv_all[layer])
-
-    attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
-    x = x + qmm(attn, params["wo"])
-
-    h = rms_norm(x, params["mlp_norm"], cfg.rms_eps)
-    gate = F.silu(qmm(h, params["w_gate"]).float())
-    up = qmm(h, params["w_up"]).float()
-    x = x + qmm((gate * up).to(x.dtype), params["w_down"])
-    return x
+        attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
+    return _out_and_mlp(params, cfg, x, attn)
 
 
 def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, block_causal):
@@ -314,9 +386,14 @@ def stack_forward(
     block_causal: bool = False,
     sp_mesh=None,
 ):
-    """Run the block stack over the stacked caches.
+    """Run the block stack, over the stacked caches or without them.
 
-    Returns ``(hidden_states, (ck_all, cv_all))``; the caches are the
+    Without ``kv_caches`` (training, distillation): plain causal attention
+    over the T tokens, gated by ``attn_mask``, through :func:`block_forward`;
+    returns ``(hidden_states, (ks, vs))`` with every layer's K/V stacked
+    ``(L, B, T, Hkv, D)``, as JAX's scan emits them. Differentiable.
+
+    With them, returns ``(hidden_states, (ck_all, cv_all))``; the caches are the
     caller's tensors, updated in place. ``key_valid`` is not modified: the
     new slots count as valid for this forward only, as in JAX.
 
@@ -330,19 +407,32 @@ def stack_forward(
     ``key_valid`` as the only gate (ring caches); ``block_causal`` restores
     causality inside the newly written block.
 
-    ``kv_window`` (not ported: the decode kernel skips masked slots),
-    ``sp_mesh`` (ROADMAP queue 1 item 12) and the cache-less forward (item
-    11) raise ``NotImplementedError``.
+    ``kv_window`` (not ported: the decode kernel skips masked slots) and
+    ``sp_mesh`` (ROADMAP queue 1 item 12) raise ``NotImplementedError``.
     """
-    if kv_caches is None:
-        raise NotImplementedError(
-            "the cache-less block_forward is not ported yet: ROADMAP queue 1 item 11")
     if kv_window is not None:
         raise NotImplementedError(
             "kv_window is not ported: the port decodes over the whole cache, whose masked "
             "slots the decode kernel skips")
     if sp_mesh is not None:
         raise NotImplementedError("sp_mesh is not ported yet: ROADMAP queue 1 item 12")
+    blocks = params["blocks"]
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    # Per-layer views by unbind: its backward stacks the L layers' gradients
+    # once, where indexing (L, ...) per layer would zero-fill and add a whole
+    # (L, ...) gradient for every layer.
+    per_layer = {name: _unbind(w) for name, w in blocks.items()}
+    if kv_caches is None:
+        mask = _causal_mask(x.shape[1], attn_mask, x.device)
+        ks, vs = [], []
+        for layer in range(int(blocks["attn_norm"].shape[0])):
+            lp = {name: w[layer] for name, w in per_layer.items()}
+            x, (k, v) = block_forward(lp, cfg, x, positions, rope=rope, mask=mask)
+            ks.append(k)
+            vs.append(v)
+        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        return x, (torch.stack(ks), torch.stack(vs))
+
     ck_all, cv_all = kv_caches
     b, t, _ = x.shape
     s = ck_all.shape[2]
@@ -363,19 +453,19 @@ def stack_forward(
         mask = _attention_mask(b, t, s, slot, x.device, attn_mask, key_valid, slot_causal,
                                block_causal)
 
-    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    blocks = params["blocks"]
     for layer in range(int(ck_all.shape[0])):
-        lp = {name: _layer(w, layer) for name, w in blocks.items()}
+        lp = {name: w[layer] for name, w in per_layer.items()}
         x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x, (ck_all, cv_all)
 
 
-def _layer(w, layer: int):
+def _unbind(w):
+    """A stacked (L, ...) weight (or a quantized leaf's dict) -> its L layers."""
     if isinstance(w, dict):
-        return {k: v[layer] for k, v in w.items()}
-    return w[layer]
+        parts = {k: v.unbind(0) for k, v in w.items()}
+        return [dict(zip(parts, layer)) for layer in zip(*parts.values())]
+    return w.unbind(0)
 
 
 def kv_cache_dtype(batch=None, max_len=None):

@@ -18,7 +18,9 @@ the reference's finite -1e30 fill, so fully masked (left-padded) rows
 average V and stay finite. See the source for the details.
 
 Dispatch: CPU tensors take :func:`reference_gqa_attention`; CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches.
+launch the kernel or raise. Inputs that require grad under grad mode raise on
+either device (``check_no_autograd``): the kernel has no backward.
+``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
-from . import _build
+from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
 launches = 0
@@ -137,6 +139,7 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
     ``csrc/attention.cu`` (or raise).
     """
     global launches
+    check_no_autograd("fused_gqa_attention", "reference_gqa_attention", q, k, v)
     if q.device.type == "cpu":
         return reference_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=q_offset)
     key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,

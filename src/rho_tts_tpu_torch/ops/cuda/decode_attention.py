@@ -20,7 +20,9 @@ e4m3 storage) and the probabilities stay f32, as in the Pallas kernel and
 probabilities to bf16 for f8 caches only).
 
 Dispatch: CPU tensors take :func:`reference_decode_attention`; CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches. The
+launch the kernel or raise. Inputs that require grad under grad mode raise on
+either device (``check_no_autograd``): the kernel has no backward.
+``launches`` counts the kernel's launches. The
 merge's workspace and tickets are kept per (device, stream) and the tickets
 reset themselves, so launches on several streams of one device do not
 share them.
@@ -34,7 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
 launches = 0
@@ -187,6 +189,7 @@ def decode_gqa_attention(q, k, v, mask):
     ``csrc/decode_attention.cu`` (or raise).
     """
     global launches
+    check_no_autograd("decode_gqa_attention", "reference_decode_attention", q, k, v)
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, mask)
     key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,

@@ -25,7 +25,9 @@ packages therefore differ by up to two bf16 roundings (at f32, by the
 order of the sums only).
 
 Dispatch: CPU tensors take :func:`reference_int4_matmul`; CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches. The
+launch the kernel or raise. Inputs that require grad under grad mode raise on
+either device (``check_no_autograd``): the kernel has no backward.
+``launches`` counts the kernel's launches. The
 kernel keeps no state between launches, so products on several streams
 never share anything.
 """
@@ -37,7 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
 launches = 0
@@ -170,6 +172,7 @@ def int4_matmul(x, q4, s):
     ``csrc/int4_matmul.cu`` (or raise).
     """
     global launches
+    check_no_autograd("int4_matmul", "reference_int4_matmul", x, s)
     if x.device.type == "cpu":
         return reference_int4_matmul(x, q4, s)
     key = (x.shape, x.stride(), x.dtype, x.device, q4.shape, q4.stride(), q4.dtype, q4.device,

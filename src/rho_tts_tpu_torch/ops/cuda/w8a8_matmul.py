@@ -19,7 +19,9 @@ so kernel and plain version agree bit for bit. Unlike the Pallas kernel's
 ``shapes_ok``, any M is taken; K must be a multiple of 16 and N of 4.
 
 Dispatch: CPU tensors take :func:`reference_w8a8_matmul`; CUDA tensors
-launch the kernel or raise. ``launches`` counts the kernel's launches.
+launch the kernel or raise. Inputs that require grad under grad mode raise on
+either device (``check_no_autograd``): the kernel has no backward.
+``launches`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Dict
 
 import torch
 
-from . import _build
+from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
 launches = 0
@@ -122,6 +124,7 @@ def w8a8_matmul(xq, sx, q, ws, out_dtype):
     ``csrc/w8a8_matmul.cu`` (or raise).
     """
     global launches
+    check_no_autograd("w8a8_matmul", "reference_w8a8_matmul", sx, ws)
     if xq.device.type == "cpu":
         return reference_w8a8_matmul(xq, sx, q, ws, out_dtype)
     key = (xq.shape, xq.stride(), xq.dtype, xq.device, sx.shape, sx.stride(), sx.dtype,

@@ -16,9 +16,11 @@ from the engine's threefry chain (:meth:`BaseTTS.next_rng`) and turns it
 into per-row seeds with ``_derive_row_seeds``, so the same seed gives the
 same codes in both packages.
 
-Options whose modules are not ported yet raise ``NotImplementedError`` at
-construction, naming their ROADMAP item: ``parallelism`` (queue 1 item 12)
-and ``lora_path`` (item 11).
+A per-voice LoRA adapter (``lora_path``, ``models.qwen.lora``) is merged
+into the dense weights at load, before quantization.
+
+``parallelism``, whose module is not ported yet, raises
+``NotImplementedError`` at construction, naming ROADMAP queue 1 item 12.
 
 Capability parity: reference ``src/rho_tts/providers/qwen.py:22-413``
 (constructor surface :48-94, routing :218-266, post-processing :268-378,
@@ -80,7 +82,9 @@ class QwenTTS(BaseTTS):
         speculative_residual_mode: "draft" (accepted slots carry the
             draft's residual codebooks) or "strict" (the target's, with
             acceptance truncated where they disagree).
-        lora_path: per-voice LoRA adapter (queue 1 item 11).
+        lora_path: per-voice LoRA adapter directory
+            (``models.qwen.lora.save_lora``), merged at load, before
+            quantization.
         serving: route the pipeline's segments through a continuous-batching
             ``ServingEngine``: a failed segment rejoins the running slot
             batch at once instead of waiting for the iteration barrier.
@@ -130,8 +134,6 @@ class QwenTTS(BaseTTS):
     ):
         if parallelism is not None:
             raise _unported(f"parallelism={parallelism!r}", "item 12 (parallel/)")
-        if lora_path is not None:
-            raise _unported("lora_path=...", "item 11 (models/qwen/lora.py)")
         super().__init__(device, seed, deterministic, phonetic_mapping=phonetic_mapping)
 
         if reference_audio is not None and reference_text is None:
@@ -156,6 +158,8 @@ class QwenTTS(BaseTTS):
                 f"Unknown speculative_residual_mode: {speculative_residual_mode!r}"
             )
         self.speculative_residual_mode = speculative_residual_mode
+        #: per-voice LoRA adapter dir merged at load, before quantization
+        self.lora_path = lora_path
         self._draft_model = None
 
         #: Continuous-batching pipeline mode (engine ``_generate_segments_served``);
@@ -190,7 +194,7 @@ class QwenTTS(BaseTTS):
             logger.info("Loading Qwen-TTS model '%s'...", self.model_path)
             self._model = QwenTTSModel.from_pretrained(
                 self.model_path, seed=self.seed, quantization=self.quantization,
-                device=self.device,
+                device=self.device, lora_path=self.lora_path,
             )
             # Refine max model chars from the checkpoint's context length
             mpe = self._model.config.max_position_embeddings

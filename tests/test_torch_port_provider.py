@@ -175,13 +175,13 @@ def test_factory_returns_the_port_provider():
     (dict(serving=True), None),
     (dict(draft_model_path="tiny"), None),
     (dict(parallelism="data"), "item 12"),
-    (dict(lora_path="/some/adapter"), "item 11"),
 ])
 def test_unported_options_raise(kw, item):
-    """``parallelism`` and ``lora_path`` raise, naming their ROADMAP items;
-    ``serving=True`` and ``draft_model_path`` build the provider (served and
-    speculative generation are held against the JAX provider in
-    ``test_torch_port_served_pipeline.py``)."""
+    """``parallelism`` raises, naming its ROADMAP item; ``serving=True`` and
+    ``draft_model_path`` build the provider (served and speculative
+    generation are held against the JAX provider in
+    ``test_torch_port_served_pipeline.py``; ``lora_path`` in
+    ``test_torch_port_lora.py``)."""
     if item is None:
         tts = TQwenTTS(device="cpu", model_path="tiny-CustomVoice", speaker="Aria", **kw)
         assert tts.supports_serving_generation == bool(kw.get("serving"))

@@ -240,9 +240,79 @@ def test_unported_modes_raise():
     caches = ttfm.make_kv_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
     kv = torch.ones((2, 8), dtype=torch.bool)
     for kwargs, match in (
-        (dict(kv_caches=None), "queue 1 item 11"),
         (dict(kv_caches=caches, cache_len=1, key_valid=kv, kv_window=4), "whole cache"),
         (dict(kv_caches=caches, cache_len=1, key_valid=kv, sp_mesh=object()), "queue 1 item 12"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             ttfm.stack_forward(tparams, tcfg, x, pos, **kwargs)
+
+
+def _cache_less_inputs(masked):
+    rng = np.random.default_rng(3)
+    b, t = 3, 10
+    x = (rng.standard_normal((b, t, CFG["hidden"])) * 0.5).astype(np.float32)
+    if not masked:
+        return x, np.tile(np.arange(t), (b, 1)), None
+    # Left-padded rows: their pad queries see no valid key at all.
+    lens = [10, 6, 1]
+    attn_mask = np.stack([np.arange(t) >= t - n for n in lens])
+    pos = np.stack([np.maximum(np.arange(t) - (t - n), 0) for n in lens])
+    return x, pos, attn_mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["causal", "left-padded"])
+def test_cache_less_forward_matches_jax(masked):
+    """``stack_forward(kv_caches=None)`` against JAX's scan over
+    ``block_forward``: hidden states and the stacked (L, B, T, Hkv, D) K/V
+    within 1e-5 at fp32. Pad queries whose keys are all masked average
+    every key (the finite -1e30 fill), as in JAX: finite, never NaN."""
+    jcfg, jparams, tcfg, tparams = _params(False)
+    x, pos, attn_mask = _cache_less_inputs(masked)
+    jh, (jk, jv) = jtfm.stack_forward(
+        jparams, jcfg, jnp.asarray(x), jnp.asarray(pos),
+        attn_mask=None if attn_mask is None else jnp.asarray(attn_mask))
+    th, (tk, tv) = ttfm.stack_forward(
+        tparams, tcfg, torch.from_numpy(x), torch.from_numpy(pos),
+        attn_mask=None if attn_mask is None else torch.from_numpy(attn_mask))
+    assert tuple(tk.shape) == (CFG["layers"], 3, 10, CFG["kv_heads"], CFG["head_dim"])
+    assert bool(torch.isfinite(th).all())
+    for ours, ref in ((th, jh), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_cache_less_forward_gradients_match_jax():
+    """The cache-less forward is differentiable: the gradient of a fixed
+    projection of its output, with respect to the input and every block
+    weight, matches ``jax.grad`` (atol 1e-5 + rtol 1e-4 at fp32; all-masked
+    pad rows included)."""
+    jcfg, jparams, tcfg, tparams = _params(False)
+    x, pos, attn_mask = _cache_less_inputs(True)
+    r = np.random.default_rng(4).standard_normal((3, 10, CFG["hidden"])).astype(np.float32)
+
+    def jloss(params, x_):
+        h, _ = jtfm.stack_forward(params, jcfg, x_, jnp.asarray(pos),
+                                  attn_mask=jnp.asarray(attn_mask))
+        return jnp.sum(h * r)
+
+    jg_params, jg_x = jax.grad(jloss, argnums=(0, 1))(jparams, jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    blocks = tparams["blocks"]
+    for w in blocks.values():
+        w.requires_grad_(True)
+    h, _ = ttfm.stack_forward(tparams, tcfg, tx, torch.from_numpy(pos),
+                              attn_mask=torch.from_numpy(attn_mask))
+    (h * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg_x), atol=1e-5, rtol=1e-4)
+    for name, w in blocks.items():
+        np.testing.assert_allclose(w.grad.numpy(), np.asarray(jg_params["blocks"][name]),
+                                   atol=1e-5, rtol=1e-4, err_msg=name)
+
+
+def test_block_forward_with_a_cache_raises():
+    """As in JAX, cached attention belongs to ``stack_forward``."""
+    tcfg = ttfm.TransformerConfig(**CFG, dtype=torch.float32)
+    lp = {k: v[0] for k, v in _params(False)[3]["blocks"].items()}
+    x = torch.zeros((1, 2, CFG["hidden"]))
+    with pytest.raises(ValueError, match="stacked-cache path"):
+        ttfm.block_forward(lp, tcfg, x, torch.zeros((1, 2), dtype=torch.int64),
+                           kv_cache=(x, x))
