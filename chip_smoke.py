@@ -70,7 +70,17 @@ Phases, each fatal on failure:
     phase 7's texts); ``distill_draft`` of a ``draft-1.7B`` toward the 1.7B
     int8 target (16 texts, 96 frames, 20 steps) and one speculative decode
     with it; each part logged as ``phase 11 <part> (<card>): {...}``. Each
-    kernel's entry gains ``launches_training``.
+    kernel's entry gains ``launches_training``;
+12. meshes (see :func:`run_parallel_path`): an NCCL world of one started
+    by ``initialize_distributed``, one all-reduce and one all-gather timed
+    directly; the 1.7B int8 one-shot path unmeshed, on a DP and a TP mesh
+    of one (codes and waveforms bit-equal, exact kernel launches, no
+    collective launched), then on the TP mesh with w8a8 prefill and with
+    int4 weights; ``ServingEngine`` over the TP mesh of one on phase 9's
+    ragged traffic against the unmeshed engine; Chatterbox "standard" over it; and every kernel at the
+    per-rank shapes of TP and SP at mp = 2 and 4 for the 1.7B and Chatterbox,
+    each part logged as ``phase 12 <part> (<card>): {...}``. Each kernel's
+    entry gains ``launches_parallel`` and ``per_rank_cases``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -1694,6 +1704,15 @@ def _drive(eng, texts, lengths, stream_every=0, temperature=0.9, seeds=None):
     return reqs, time.perf_counter() - t0
 
 
+def _serve_traffic():
+    """Phase 9's requests: texts and bench.py's ragged target lengths."""
+    import numpy as np
+
+    lengths = np.random.default_rng(0).choice(SERVE_LENGTHS, size=SERVE_DRAWN).tolist()
+    lengths = [int(n) for n in lengths[:SERVE_REQUESTS]]
+    return [SERVE_TEXT.format(i) for i in range(SERVE_REQUESTS)], lengths
+
+
 def _percentile(xs, q):
     import numpy as np
 
@@ -1729,9 +1748,7 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     cfg = model.config
     layers, hop, fr = cfg.talker.layers, cfg.codec.hop, cfg.codec.frame_rate
     chunk = qmodel._chunk()
-    lengths = np.random.default_rng(0).choice(SERVE_LENGTHS, size=SERVE_DRAWN).tolist()
-    lengths = [int(n) for n in lengths[:SERVE_REQUESTS]]
-    texts = [SERVE_TEXT.format(i) for i in range(SERVE_REQUESTS)]
+    texts, lengths = _serve_traffic()
     out = {"card": smi, "preset": cfg.name, "quantization": model.quantization,
            "requests": SERVE_REQUESTS,
            "cut": f"{SERVE_DRAWN} requests of bench.py's serving workload cut to the first "
@@ -2832,6 +2849,384 @@ def run_training_path(qmodel, kmods, build_dir: str, smi: str, device: str = "cu
     shutil.rmtree(work, ignore_errors=True)
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 12: meshes (parallel inference) on one card
+# ---------------------------------------------------------------------------
+
+# The 1.7B talker's per-rank shapes at TP degree mp: (K, N) of w_gate / w_up,
+# w_down, wqkv and wo, whole; column-parallel layers split N, row-parallel K.
+Q17_HEADS, Q17_KV, Q17_D, Q17_PROMPT = 16, 8, 128, 128
+Q17_MATMULS = ((2048, 6144, "col"), (6144, 2048, "row"), (2048, 4096, "col"),
+               (2048, 2048, "row"))
+CB_MP_MATMULS = ((1024, 4096, "col"), (4096, 1024, "row"), (1024, 3072, "col"),
+                 (1024, 1024, "row"))
+
+
+def _local_shape(k, n, kind, mp):
+    return (k, n // mp) if kind == "col" else (k // mp, n)
+
+
+def check_per_rank_shapes(attn, dec, qz, w8, i4, sharding, gen, device="cuda",
+                          iters: int = 20) -> dict:
+    """Phase 12 e: the four kernels at the shapes one rank of a TP (or SP)
+    mesh of mp = 2 and 4 launches, for the 1.7B and Chatterbox "standard":
+    attention at the local heads; w8a8 and int4 at the column shards and the
+    row shards (int4's cut by ``sharding``'s repack from a whole packed
+    weight); the SP prefill: every query shard at its ``q_offset``, the
+    shards joined and held against the plain version and the unsharded
+    kernel. Each case against its plain version at phase 2's tolerances,
+    twice for the same bits, timed beside its bound. Returns the cases by
+    kernel name."""
+    from rho_tts_tpu_torch.parallel.mesh import Axis
+
+    bf = torch.bfloat16
+    out = {name: [] for name in ("prefill_gqa_attention", "decode_gqa_attention",
+                                 "w8a8_matmul", "int4_matmul")}
+
+    def timed(case, kernel, plain, bound):
+        case.update(ms=time_ms(kernel, iters=iters), plain_ms=time_ms(plain, iters=iters))
+        case["bound_ms"], case["bound_by"] = bound
+
+    def held_int4(case, o1, o2, ref):
+        tol = 2e-2 * ref.float().abs().max().item() + 1e-3  # as phase 2's int4 cases
+        _held(out["int4_matmul"], "per-rank int4 matmul", case, o1, o2, ref, tol)
+
+    for model, (hq, hkv, d), matmuls, rows, p, s, m_pre, m_dec in (
+        ("1.7B", (Q17_HEADS, Q17_KV, Q17_D), Q17_MATMULS, 5, Q17_PROMPT, 384, 640, 5),
+        ("chatterbox", (CB_HEADS, CB_HEADS, CB_D), CB_MP_MATMULS, 2, 64, 320, 128, 2),
+    ):
+        pads = [0, 17, 40, 63, 90][:rows] if rows == 5 else [0, p - 34]
+        pmask = _pad_mask(p, pads)
+        key_pos = torch.arange(s, device=device)[None, :]
+        dmask = (key_pos >= torch.tensor(pads, device=device)[:, None]) & (key_pos <= s - 40)
+        for mp in (2, 4):
+            tag = {"model": model, "mp": mp}
+            # kernel 1 and 2 at the local heads
+            q, k, v = _attn_inputs(gen, (rows, p, hq // mp, d), (rows, p, hkv // mp, d), bf, bf)
+            run = lambda: attn.fused_gqa_attention(q, k, v, pmask)  # noqa: E731
+            plain = lambda: attn.reference_gqa_attention(q, k, v, pmask)  # noqa: E731
+            case = dict(tag, case="TP prefill, local heads", q=list(q.shape), kv=list(k.shape))
+            _held(out["prefill_gqa_attention"], "per-rank prefill", case, run(), run(), plain(),
+                  2e-2)
+            timed(case, run, plain, _prefill_bound(q, k, v, pmask))
+            qd, kd, vd = _attn_inputs(gen, (rows, 1, hq // mp, d), (rows, s, hkv // mp, d), bf, bf)
+            run = lambda: dec.decode_gqa_attention(qd, kd, vd, dmask)  # noqa: E731
+            plain = lambda: dec.reference_decode_attention(qd, kd, vd, dmask)  # noqa: E731
+            case = dict(tag, case="TP decode, local heads", q=list(qd.shape), kv=list(kd.shape))
+            _held(out["decode_gqa_attention"], "per-rank decode", case, run(), run(), plain(),
+                  2e-2)
+            timed(case, run, plain, _decode_bound(qd, kd, dmask))
+            # SP: every query shard at its offset over the whole K/V
+            q, k, v = _attn_inputs(gen, (rows, p, hq, d), (rows, p, hkv, d), bf, bf)
+            whole = attn.fused_gqa_attention(q, k, v, pmask)
+            ref = attn.reference_gqa_attention(q, k, v, pmask)
+            tl = p // mp
+            parts = []
+            for r in range(mp):
+                axis = Axis("model", mp, r)
+                qs = q[:, r * tl:(r + 1) * tl]
+                o1 = attn.sp_fused_gqa_attention(qs, k, v, pmask, axis)
+                o2 = attn.sp_fused_gqa_attention(qs, k, v, pmask, axis)
+                case = dict(tag, case=f"SP prefill, query shard {r} at q_offset {r * tl}",
+                            q=list(qs.shape), kv=list(k.shape))
+                _held(out["prefill_gqa_attention"], "per-rank SP prefill", case, o1, o2,
+                      attn.reference_gqa_attention(qs, k, v, pmask, q_offset=r * tl), 2e-2)
+                parts.append(o1)
+                if r == mp - 1:  # the last shard attends to the most keys
+                    timed(case, lambda: attn.sp_fused_gqa_attention(qs, k, v, pmask, axis),
+                          lambda: attn.reference_gqa_attention(qs, k, v, pmask,
+                                                               q_offset=r * tl),
+                          _prefill_bound(qs, k, v, pmask))
+            joined = torch.cat(parts, dim=1)
+            err_plain = (joined.float() - ref.float()).abs().max().item()
+            err_whole = (joined.float() - whole.float()).abs().max().item()
+            case = dict(tag, case="SP shards joined", joined_vs_plain=err_plain,
+                        joined_vs_unsharded_kernel=err_whole, tol=2e-2)
+            out["prefill_gqa_attention"].append(case)
+            if not err_plain <= 2e-2 or not err_whole <= 2e-2:
+                raise AssertionError(f"SP shards joined: {case}")
+            # kernels 3 and 4 at the column and row shards
+            for kk, n, kind in matmuls:
+                kl, nl = _local_shape(kk, n, kind, mp)
+                qw = _quantized_weight(qz.quantize_weight, kl, nl, gen)
+                xf = torch.randn((m_pre, kl), generator=gen, device=device).to(bf).float()
+                sx = qz._div(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8), 127.0)
+                xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+                args = (xq, sx, qw["q"], qw["s"], bf)
+                o1, o2 = w8.w8a8_matmul(*args), w8.w8a8_matmul(*args)
+                case = dict(tag, case=f"w8a8 {kind} shard", m=m_pre, k=kl, n=nl)
+                _held(out["w8a8_matmul"], "per-rank w8a8 matmul", case, o1, o2,
+                      w8.reference_w8a8_matmul(*args), 0.0)
+                timed(case, lambda: w8.w8a8_matmul(*args),
+                      lambda: w8.reference_w8a8_matmul(*args),
+                      bound_ms(nbytes(xq, sx, qw["q"], qw["s"], o1), 2 * m_pre * kl * nl,
+                               INT8_OP_PER_S))
+                whole_q4 = _quantized_weight(qz.pack_int4, kk, n, gen)
+                if kind == "col":
+                    q4 = {"q4": whole_q4["q4"][:, :nl].contiguous(), "s": whole_q4["s"][:nl]}
+                else:  # the rank's contiguous K rows, repacked in halves of its own
+                    shard = sharding.shard_params(_OneAxisMesh(mp), {"w": whole_q4},
+                                                  {"w": {"q4": ("model", None), "s": (None,)}})
+                    q4 = shard["w"]
+                for m in (m_dec, m_pre):
+                    x = torch.randn((m, kl), generator=gen, device=device).to(bf)
+                    a4 = (x, q4["q4"], q4["s"])
+                    o1, o2 = i4.int4_matmul(*a4), i4.int4_matmul(*a4)
+                    case = dict(tag, case=f"int4 {'GEMV' if m == m_dec else 'GEMM'} {kind} "
+                                f"shard", m=m, k=kl, n=nl)
+                    held_int4(case, o1, o2, i4.reference_int4_matmul(*a4))
+                    timed(case, lambda: i4.int4_matmul(*a4),
+                          lambda: i4.reference_int4_matmul(*a4),
+                          bound_ms(nbytes(x, q4["q4"], q4["s"], o1), 2 * m * kl * nl,
+                                   BF16_FLOP_PER_S))
+    return out
+
+
+class _OneAxisMesh:
+    """Rank 0's view of a ``model`` axis of ``mp`` for ``shard_params``: the
+    cut is local, no process group."""
+
+    def __init__(self, mp: int):
+        from rho_tts_tpu_torch.parallel.mesh import Axis
+
+        self.shape = {"data": 1, "model": mp}
+        self._axis = Axis("model", mp, 0)
+
+    def axis(self, name):
+        return self._axis
+
+
+def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str = "1.7B",
+                      cb_preset: str = "standard", init_method: str = None) -> dict:
+    """Phase 12: the mesh layer on one card (see the module docstring).
+
+    a. an NCCL world of one through ``initialize_distributed`` (127.0.0.1,
+       a free port); one ``torch.distributed`` all-reduce and one all-gather
+       of a decode step's activation (5 x 2048 bf16), called directly and
+       timed as the floor of a collective on this card;
+    b. the 1.7B int8, batch 5, a 128-slot prompt, 2 chunks of 64, through
+       ``synthesize``: unmeshed, on a DP mesh of one, on a TP mesh of one
+       (codes and waveforms bit-equal, kernels 1 / 2 launched 28 a call and
+       28 a step, no collective launched); then on the TP mesh of one with
+       w8a8 prefill (one chunk) and with int4 weights (one chunk);
+    c. ``ServingEngine(n_slots=8)`` over the TP mesh of one on phase 9's
+       traffic (16 ragged requests on 8 slots, every other one streamed,
+       top-k 4): more than one admission group, every length exact, codes
+       equal the unmeshed engine's; admission and dispatch under the sync
+       check;
+    d. Chatterbox "standard" int8 over a TP mesh of one, one segment:
+       tokens and waveform equal the unmeshed run's;
+    e. the per-rank kernel shapes (:func:`check_per_rank_shapes`).
+    The process group is torn down at the end.
+    """
+    import numpy as np
+    import torch.distributed as dist
+
+    from rho_tts_tpu_torch import serving
+    from rho_tts_tpu_torch.models import quantization as qz
+    from rho_tts_tpu_torch.models.chatterbox import model as cbm
+    from rho_tts_tpu_torch.ops.cuda import attention as attn
+    from rho_tts_tpu_torch.ops.cuda import decode_attention as dec
+    from rho_tts_tpu_torch.ops.cuda import int4_matmul as i4
+    from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as w8
+    from rho_tts_tpu_torch.parallel import collectives, inference, mesh, sharding
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"card": smi}
+
+    # -- a. NCCL world of one -------------------------------------------------
+    t0 = time.perf_counter()
+    if init_method is None:
+        init_method = f"127.0.0.1:{mesh.free_port()}"
+    mesh.initialize_distributed(init_method, 1, 0, device=device, local_rank=0)
+    init_s = time.perf_counter() - t0
+    x = torch.randn((5, 2048), device=device).to(torch.bfloat16)
+    gathered = torch.empty((5, 2048), dtype=torch.bfloat16, device=device)
+    ar_ms = time_ms(lambda: dist.all_reduce(x), iters=20)
+    ag_ms = time_ms(lambda: dist.all_gather_into_tensor(gathered, x), iters=20)
+    if not torch.equal(gathered, x):
+        raise AssertionError("an all-gather over a world of one changed its input")
+    out["a_world_of_one"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                             "init_s": init_s, "all_reduce_ms": ar_ms, "all_gather_ms": ag_ms,
+                             "activation": "(5, 2048) bf16"}
+    log(f"phase 12 a_world_of_one ({smi}): {json.dumps(out['a_world_of_one'])}")
+
+    # -- b. the one-shot path on meshes of one -----------------------------------
+    cfg = qmodel.PRESETS[preset]
+    layers, chunk = cfg.talker.layers, qmodel._chunk()
+    frames = 2 * chunk
+    kw = dict(min_frames=frames, max_frames=frames, top_k=50, seeds=list(range(len(TEXTS))))
+    one = mesh.create_mesh(1, model_parallel=1)
+    models = {}
+    for name, enable in (("unmeshed", None), ("dp_mesh_of_one", inference.enable_data_parallel),
+                         ("tp_mesh_of_one", inference.enable_tensor_parallel)):
+        models[name] = qmodel.QwenTTSModel(cfg, seed=0, quantization="int8", device=device)
+        if enable is not None:
+            enable(models[name], one)
+        models[name].synthesize(TEXTS, **kw)  # warm-up
+    _sync(device)
+
+    def attention_want(steps, w8a8=0, int4=0):
+        return {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
+                "w8a8_matmul": w8a8, "int4_matmul": int4}
+
+    def run(m, name, frames_, want):
+        kw_ = dict(kw, min_frames=frames_, max_frames=frames_)
+        _zero(kmods)
+        collectives.launches = 0
+        t0 = time.perf_counter()
+        codes, waves, _sr = synthesize_codes(m, kw_)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches, coll = _launches(kmods), collectives.launches
+        steps = codes.shape[1] - 1  # frame 0 comes from the prefill
+        if launches != want(steps) or coll != 0:
+            raise AssertionError(f"phase 12 b {name}: launches {launches} vs {want(steps)}, "
+                                 f"{coll} collectives")
+        if codes.shape[0] != len(TEXTS) or not all(bool(torch.isfinite(w).all()) for w in waves):
+            raise AssertionError(f"phase 12 b {name}: codes {tuple(codes.shape)}")
+        return {"wall_s": wall, "decode_steps": steps, "launches": launches,
+                "collective_launches": coll}, codes, waves
+
+    # Each variant twice, in an order that alternates (U D T T D U): a wall
+    # that follows the order and not the mesh shows as a spread.
+    order = list(models) + list(models)[::-1]
+    b = {"preset": preset, "quantization": "int8", "batch": len(TEXTS), "frames": frames,
+         "order": order}
+    ref = None
+    for name in order:
+        res, codes, waves = run(models[name], name, frames, attention_want)
+        if ref is None:
+            ref = (codes, waves)
+        elif not torch.equal(codes, ref[0]) or not all(torch.equal(a, z)
+                                                       for a, z in zip(waves, ref[1])):
+            raise AssertionError(f"phase 12 b: {name}'s codes or waveforms differ from the "
+                                 "unmeshed run's")
+        walls = b.get(name, {}).get("walls_s", []) + [res.pop("wall_s")]
+        b[name] = dict(res, walls_s=walls)
+    b["codes_and_waves_bit_equal"] = True
+    model = models["tp_mesh_of_one"]
+    saved = os.environ.get("RHO_TTS_TPU_W8A8_PREFILL")
+    os.environ["RHO_TTS_TPU_W8A8_PREFILL"] = "1"
+    try:
+        b["tp_w8a8_prefill"], _, _ = run(model, "tp w8a8", chunk,
+                                         lambda st: attention_want(st, w8a8=5 * layers))
+    finally:
+        _restore_env("RHO_TTS_TPU_W8A8_PREFILL", saved)
+    del model, models
+    gc.collect()
+    model4 = qmodel.QwenTTSModel(cfg, seed=0, quantization="int4", device=device)
+    inference.enable_tensor_parallel(model4, one)
+    b["tp_int4"], _, _ = run(model4, "tp int4", chunk,
+                             lambda st: attention_want(st, int4=5 * layers * (1 + st)))
+    del model4
+    gc.collect()
+    out["b_oneshot"] = b
+    log(f"phase 12 b_oneshot ({smi}): {json.dumps(b)}")
+
+    # -- c. ServingEngine over the TP mesh of one --------------------------------
+    smodel = qmodel.QwenTTSModel.from_pretrained("Qwen3-TTS-12Hz-1.7B-CustomVoice"
+                                                 if preset == "1.7B" else "tiny-CustomVoice",
+                                                 quantization="int8", device=device)
+    texts, lengths = _serve_traffic()
+
+    def serve(m, guard):
+        eng = serving.ServingEngine(m, n_slots=8, max_prompt=64, max_frames=512, top_k=4)
+        restore = _guard_sync(eng, ("_admit", "_dispatch")) if guard else (lambda: None)
+        _zero(kmods)
+        collectives.launches = 0
+        try:
+            reqs, wall = _drive(eng, texts, lengths, stream_every=2)
+        finally:
+            restore()
+        res = {"wall_s": wall, "dispatches": eng.dispatches, "admission_groups": eng.admissions,
+               "launches": _launches(kmods), "collective_launches": collectives.launches}
+        if [r.n_frames for r in reqs] != lengths:
+            raise AssertionError(f"phase 12 c: frames {[r.n_frames for r in reqs]} vs {lengths}")
+        codes = [r.codes for r in reqs]
+        eng.close()
+        return res, codes
+
+    c = {"requests": len(texts), "lengths": lengths,
+         "traffic": "phase 9's: ragged lengths on 8 slots, every other one streamed, top-k 4 "
+                    "at temperature 0.9"}
+    c["unmeshed"], ref_codes = serve(smodel, False)
+    inference.enable_tensor_parallel(smodel, one)
+    c["tp_mesh_of_one"], tp_codes = serve(smodel, device == "cuda")
+    steps = c["tp_mesh_of_one"]["dispatches"] * chunk
+    want = {"prefill_gqa_attention": layers * c["tp_mesh_of_one"]["admission_groups"],
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+    if (c["tp_mesh_of_one"]["launches"] != want or c["tp_mesh_of_one"]["collective_launches"]
+            or c["tp_mesh_of_one"]["admission_groups"] < 2):
+        raise AssertionError(f"phase 12 c: {c['tp_mesh_of_one']} vs {want}, and more than "
+                             "one admission group")
+    if not all(np.array_equal(a, z) for a, z in zip(ref_codes, tp_codes)):
+        raise AssertionError("phase 12 c: served codes over the mesh differ from the unmeshed "
+                             "engine's")
+    c["codes_equal"], c["host_waits_in_dispatch"] = True, 0
+    del smodel
+    gc.collect()
+    out["c_serving"] = c
+    log(f"phase 12 c_serving ({smi}): {json.dumps(c)}")
+
+    # -- d. Chatterbox over the TP mesh of one -----------------------------------
+    cb = cbm.ChatterboxModel.from_pretrained(device=device, implementation=cb_preset,
+                                             quantization="int8", seed=789)
+    cb_layers = cb.cfg.talker.layers
+    min_new = cbm.CHUNK - 30  # at least one chunk of decode
+
+    @torch.inference_mode()
+    def cb_run(name):
+        _zero(kmods)
+        collectives.launches = 0
+        t0 = time.perf_counter()
+        st = cb._start_decode(CB_TEXT, None, 1.0, 0.6, None, None, min_new, None, seeds=[7])
+        toks, done = cb._decode_all(st, 1.0, 0.6, min_new, None)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        res = {"wall_s": wall, "decode_steps": toks.shape[1] - 1, "launches": _launches(kmods),
+               "collective_launches": collectives.launches}
+        want = _cb_want(cb_layers, 1, res["decode_steps"])
+        if res["launches"] != want or res["collective_launches"]:
+            raise AssertionError(f"phase 12 d {name}: {res} vs {want}")
+        return res, toks.cpu(), done.cpu()
+
+    d = {"preset": cb_preset, "quantization": "int8", "text": CB_TEXT, "seed": 7,
+         "min_new_tokens": min_new}
+    d["unmeshed"], t_ref, d_ref = cb_run("unmeshed")
+    inference.enable_tensor_parallel(cb, one)
+    d["tp_mesh_of_one"], t_tp, d_tp = cb_run("tp")
+    if not torch.equal(t_ref, t_tp) or not torch.equal(d_ref, d_tp):
+        raise AssertionError("phase 12 d: Chatterbox tokens over the mesh differ")
+    d["tokens_equal"] = True
+    del cb
+    gc.collect()
+    out["d_chatterbox"] = d
+    log(f"phase 12 d_chatterbox ({smi}): {json.dumps(d)}")
+    mesh.shutdown_distributed()
+
+    # -- e. per-rank kernel shapes ---------------------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(12)
+    out["e_per_rank"] = check_per_rank_shapes(attn, dec, qz, w8, i4, sharding, gen, device)
+    n_cases = sum(len(v) for v in out["e_per_rank"].values())
+    log(f"phase 12 e_per_rank ({smi}): {n_cases} cases held in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(out['e_per_rank'])}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    if device == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="smoke test of the port on one GPU")
     parser.add_argument("--parent", default=None,
@@ -2927,6 +3322,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     train_path = run_training_path(qmodel, kmods, build_dir, smi)
     log(f"phase 11 training: every part passed in {time.perf_counter() - t0:.1f} s")
+    mesh_path = run_parallel_path(qmodel, kmods, smi)
+    log(f"phase 12 meshes: every part passed in {mesh_path['wall_s']:.1f} s, peak "
+        f"{mesh_path['peak_mem_gb']:.2f} GB")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -2954,6 +3352,18 @@ def main(argv=None) -> int:
             "lora_generate": train_path["c_lora"]["generate"]["launches"][k["name"]],
             "distill": train_path["d_distill"]["rollout_launches"][k["name"]]
             + train_path["d_distill"]["step_launches"][k["name"]]}
+        mb = mesh_path["b_oneshot"]
+        k["launches_parallel"] = {
+            "b_unmeshed": mb["unmeshed"]["launches"][k["name"]],
+            "b_dp_mesh_of_one": mb["dp_mesh_of_one"]["launches"][k["name"]],
+            "b_tp_mesh_of_one": mb["tp_mesh_of_one"]["launches"][k["name"]],
+            "b_tp_w8a8_prefill": mb["tp_w8a8_prefill"]["launches"][k["name"]],
+            "b_tp_int4": mb["tp_int4"]["launches"][k["name"]],
+            "c_served_tp": mesh_path["c_serving"]["tp_mesh_of_one"]["launches"][k["name"]],
+            "d_chatterbox_tp": mesh_path["d_chatterbox"]["tp_mesh_of_one"]["launches"][k["name"]]}
+        k["per_rank_cases"] = mesh_path["e_per_rank"][k["name"]]
+        if not any(k["launches_parallel"].values()):
+            raise AssertionError(f"phase 12: {k['name']} was launched no time on the mesh path")
 
     log(json.dumps({"kernels": kernels}))
     log(smi)

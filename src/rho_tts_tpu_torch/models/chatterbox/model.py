@@ -26,6 +26,13 @@ Sampling reproduces the JAX package's bits: the noise of request i at
 frame f is ``f(seeds[i], f)`` through the port's threefry, and the CFG mix
 is rounded once, as XLA's fused multiply-add rounds it, so the same seeds
 draw the same tokens in both packages.
+
+Meshes (``parallel``; one process per GPU, each returning the whole
+result): the one-shot CFG batch keeps its rows on every rank (the mix needs
+both rows of a pair, and the batch is one text's 2k rows), so ``data``
+replicates it; under tensor parallelism each rank runs its weight shards
+and KV heads (``tp``). The serving engine (``serving_cb``) is where the
+slot rows split over ``data``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.watermark import _ENV_WINDOW, apply_watermark
+from ...parallel.collectives import vocab_embed
 from ...serving import _Lagged, _upload
 from ...utils import prng, profiling
 from ...utils.tokenizer import load_tokenizer
@@ -159,12 +167,13 @@ def init_params(cfg: ChatterboxConfig, seed: int = 0, device=None) -> Params:
 
 
 def prompt_embeds(params, cfg: ChatterboxConfig, ids_slotted, text_mask, bos_mask, spk_mask,
-                  spk) -> torch.Tensor:
+                  spk, tp=None) -> torch.Tensor:
     """Prompt embeddings from the host-built masks: text slots, the BOS slot
     and the speaker-prefix slot. ``spk`` is one embedding ``(256,)`` shared by
-    every row, or one per row ``(R, 256)``; its projection runs in f32."""
+    every row, or one per row ``(R, 256)``; its projection runs in f32.
+    Under ``tp`` the text table is this rank's vocab shard."""
     dt = params["text_embed"].dtype
-    emb = params["text_embed"][ids_slotted]  # (R, P, H)
+    emb = vocab_embed(params["text_embed"], ids_slotted, tp)  # (R, P, H)
     spk_e = (spk.float() @ params["spk_proj"].float()).to(dt)
     spk_e = spk_e[None, None] if spk_e.dim() == 1 else spk_e[:, None, :]
     bos_e = params["speech_embed"][cfg.speech_bos].to(dt)
@@ -176,16 +185,16 @@ def prompt_embeds(params, cfg: ChatterboxConfig, ids_slotted, text_mask, bos_mas
 
 
 def _prefill(params, cfg: ChatterboxConfig, ids_slotted, text_mask, bos_mask, spk_mask, spk,
-             rope_pos, attn_mask, cache_k, cache_v, key_valid):
+             rope_pos, attn_mask, cache_k, cache_v, key_valid, tp=None):
     """Prompt embedding + prefill (the prefill attention kernel). Writes the
     caches in place; returns ``(logits (R, V) f32, cache_k, cache_v,
-    key_valid)``."""
+    key_valid)``. ``tp``: the mesh axis the weights are sharded over."""
     p = ids_slotted.shape[1]
-    embeds = prompt_embeds(params, cfg, ids_slotted, text_mask, bos_mask, spk_mask, spk)
+    embeds = prompt_embeds(params, cfg, ids_slotted, text_mask, bos_mask, spk_mask, spk, tp)
     h, (ck, cv) = tfm.stack_forward(
         params["talker"], cfg.talker, embeds, rope_pos,
         kv_caches=(cache_k, cache_v), cache_len=0, attn_mask=attn_mask,
-        key_valid=key_valid, fused_prefill=True,
+        key_valid=key_valid, fused_prefill=True, tp=tp,
     )
     key_valid = key_valid.clone()
     key_valid[:, :p] = attn_mask
@@ -222,13 +231,13 @@ def _cfg_sample(logits2b, seeds, frames, temperature, top_k: int, cfg_weight):
 
 def _decode_chunk(params, cfg: ChatterboxConfig, cache_k, cache_v, key_valid, slot0: int,
                   rope_base, last_tok, done, seeds, temperature, cfg_weight, step_base: int,
-                  min_new: int, steps: int, top_k: int):
+                  min_new: int, steps: int, top_k: int, tp=None):
     """``steps`` CFG decode steps from cache slot ``slot0`` over the 2B rows.
 
     The JAX scan as a Python loop; caches and ``key_valid`` are updated in
-    place. The sampled token feeds both rows of its request. Returns
-    ``(toks (B, steps), done (B, steps), cache_k, cache_v, key_valid,
-    last_tok, done)``.
+    place; ``tp`` as :func:`_prefill`. The sampled token feeds both rows of
+    its request. Returns ``(toks (B, steps), done (B, steps), cache_k,
+    cache_v, key_valid, last_tok, done)``.
     """
     lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
     embed = params["speech_embed"]
@@ -243,6 +252,7 @@ def _decode_chunk(params, cfg: ChatterboxConfig, cache_k, cache_v, key_valid, sl
         h, _ = tfm.stack_forward(
             params["talker"], cfg.talker, embed[tok2b][:, None, :], (rope_base + t)[:, None],
             kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None, key_valid=key_valid,
+            tp=tp,
         )
         key_valid[:, slot] = True
         logits = h[:, -1].float() @ lm_head
@@ -315,8 +325,10 @@ class ChatterboxModel(nn.Module):
         self.params = {key: _register(self, key, value) for key, value in params.items()}
         self._speaker_encoder = None
         self.conditionals: Optional[np.ndarray] = None  # active speaker embedding
-        #: a device mesh (ROADMAP queue 1 item 12); None = one device
+        #: the device mesh (``parallel.inference``); None = one device
         self.mesh = None
+        #: the mesh's ``model`` axis when the talker weights are sharded over it
+        self.tp_axis = None
 
     @property
     def config(self) -> ChatterboxConfig:
@@ -378,9 +390,21 @@ class ChatterboxModel(nn.Module):
         (pre-quantized when the model is quantized)."""
         from .. import checkpoint as ckpt_lib
 
+        if self.tp_axis is not None:
+            raise ValueError("a tensor-parallel model holds this rank's weight shards: save "
+                             "the checkpoint before enable_tensor_parallel")
+
         preset = next((k for k, v in PRESETS.items() if v is self.cfg), "standard")
         ckpt_lib.save_params(path, self.params, family="chatterbox", preset=preset,
                              quantization=self.quantization)
+
+    def _shard_kv(self, rows: int, s: int):
+        """This rank's ``(L, rows, s, Hkv, D)`` KV caches: every row (the CFG
+        rows stay whole over ``data``), the local KV heads under tensor
+        parallelism (JAX's ``_shard_kv`` lays out a global cache; here the
+        shard is allocated directly)."""
+        return tfm.make_kv_cache(tfm.local_config(self.cfg.talker, self.tp_axis), rows, s,
+                                 device=self.device)
 
     # -- Voice conditioning ----------------------------------------------------
 
@@ -414,9 +438,6 @@ class ChatterboxModel(nn.Module):
         goes up by a pinned, asynchronous copy, so nothing here waits on the
         device. Returns the decode-loop carry.
         """
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "decoding over a device mesh is not ported yet: ROADMAP queue 1 item 12")
         cfg = self.cfg
         dev = self.device
         k = int(candidates)
@@ -459,14 +480,14 @@ class ChatterboxModel(nn.Module):
             s = min(s, _round_up(max(cache_cap, p + CHUNK), CHUNK))
             n_chunks = max((s - p) // CHUNK, 1)
 
-        cache_k, cache_v = tfm.make_kv_cache(cfg.talker, 2 * k, s, device=dev)
+        cache_k, cache_v = self._shard_kv(2 * k, s)
         key_valid = torch.zeros((2 * k, s), dtype=torch.bool, device=dev)
         with profiling.stage("chatterbox/prefill"):
             logits, cache_k, cache_v, key_valid = _prefill(
                 self.params, cfg, _upload(ids_slotted, dev), _upload(text_mask, dev),
                 _upload(bos_mask, dev), _upload(spk_mask, dev), _upload(spk_vec, dev),
                 _upload(rope_pos.astype(np.int64), dev), _upload(attn_mask, dev),
-                cache_k, cache_v, key_valid,
+                cache_k, cache_v, key_valid, tp=self.tp_axis,
             )
         if seeds is None:
             seeds_np = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, k)
@@ -511,7 +532,7 @@ class ChatterboxModel(nn.Module):
                 (toks, dones, cache_k, cache_v, key_valid, last_tok, done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,
                     rope_base + (slot0 - p), last_tok, done, seeds, temperature, cfg_weight,
-                    slot0 - p + 1, min_new_tokens, CHUNK, cfg.top_k,
+                    slot0 - p + 1, min_new_tokens, CHUNK, cfg.top_k, self.tp_axis,
                 )
             all_toks.append(toks)
             all_done.append(dones)
@@ -646,7 +667,7 @@ class ChatterboxModel(nn.Module):
                 (toks, dones, cache_k, cache_v, key_valid, last_tok, done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,
                     rope_base + (slot0 - p), last_tok, done, seeds, temperature, cfg_weight,
-                    slot0 - p + 1, min_new_tokens, CHUNK, cfg.top_k,
+                    slot0 - p + 1, min_new_tokens, CHUNK, cfg.top_k, self.tp_axis,
                 )
             slot0 += CHUNK
             tt, dd = toks[0].cpu().numpy(), dones[0].cpu().numpy()

@@ -29,6 +29,13 @@ by its reciprocal on CUDA, which may round differently.
   on every call; XLA fuses the convert into the dot);
 * dense weights are a plain ``x @ w``.
 
+Under tensor parallelism the row-parallel ``wo`` / ``w_down`` matmuls pass
+``reduce``, the mesh's ``model`` axis: ``x`` holds this rank's K shard and
+the partial products are sum-all-reduced. A w8a8 quantize there takes each
+row's absmax over the WHOLE K, as the JAX program does (a max all-reduce
+before the quantize), then kernel 3 runs on the local shard. Weight-only
+int8 and int4 need no collective beyond the sum.
+
 The kernels' gates (``RHO_TTS_TPU_W8A8_KERNEL``, ``RHO_TTS_TPU_INT4_KERNEL``
 and ``shapes_ok`` in JAX) do not exist here: on CUDA tensors the hand
 kernel is the only route.
@@ -37,13 +44,15 @@ kernel is the only route.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..ops.cuda.int4_matmul import int4_matmul
 from ..ops.cuda.w8a8_matmul import w8a8_matmul
+from ..parallel.collectives import all_reduce_max, all_reduce_sum
+from ..parallel.mesh import Axis
 
 QUANT_KEYS = ("wqkv", "wo", "w_gate", "w_up", "w_down")
 BITS_MAX = 7  # symmetric int4: values in [-7, 7]
@@ -100,33 +109,40 @@ def _w8a8_prefill_enabled() -> bool:
     return os.environ.get("RHO_TTS_TPU_W8A8_PREFILL", "0") == "1"
 
 
-def _w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def _w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                 reduce: Optional[Axis] = None) -> torch.Tensor:
     """x @ (q*s) with per-row int8 activations, as JAX's ``_w8a8_matmul``.
 
     The activation quantize (f32 row absmax, ``max(amax, 1e-8) / 127``,
     ``clip(round(x / sx), -127, 127)``) runs here in plain ops, outside the
-    kernel; the int8 dot and the rescale run in ``w8a8_matmul``.
+    kernel; the int8 dot and the rescale run in ``w8a8_matmul``. With
+    ``reduce`` (row-parallel) the absmax is the whole row's and the scaled
+    partials are summed over the axis.
     """
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)  # (..., T, 1)
+    amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), reduce)  # (..., T, 1)
     sx = _div(amax.clamp_min(1e-8), 127.0)
     xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
     lead = x.shape[:-1]
     k_dim, n = q.shape
     y = w8a8_matmul(xq.reshape(-1, k_dim), sx.reshape(-1, 1), q, s.float(), x.dtype)
-    return y.reshape(*lead, n)
+    return all_reduce_sum(y, reduce).reshape(*lead, n)
 
 
-def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for dense or quantized ({"q","s"} int8 / {"q4","s"} int4) weights."""
+def matmul(x: torch.Tensor, w, reduce: Optional[Axis] = None) -> torch.Tensor:
+    """x @ w for dense or quantized ({"q","s"} int8 / {"q4","s"} int4) weights.
+
+    ``reduce``: the axis over which ``x`` and ``w`` hold K shards (a
+    row-parallel matmul); the partial products are summed over it.
+    """
     if isinstance(w, dict):
         if "q4" in w:
-            return int4_matmul(x, w["q4"], w["s"])
+            return all_reduce_sum(int4_matmul(x, w["q4"], w["s"]), reduce)
         if x.dim() >= 2 and x.shape[-2] > 1 and _w8a8_prefill_enabled():
-            return _w8a8_matmul(x, w["q"], w["s"])
-        y = x @ w["q"].to(x.dtype)
+            return _w8a8_matmul(x, w["q"], w["s"], reduce)
+        y = all_reduce_sum(x @ w["q"].to(x.dtype), reduce)
         return (y.float() * w["s"]).to(x.dtype)
-    return x @ w
+    return all_reduce_sum(x @ w, reduce)
 
 
 def is_quantized(w) -> bool:

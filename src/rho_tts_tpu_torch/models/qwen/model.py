@@ -35,6 +35,16 @@ On the CUDA kernel the split of the keys follows the cache length, so a
 near-tie could round to another code than a windowed decode would; the
 streamed and the one-shot decode of a text share the cache length and
 decode the same codes.
+
+Meshes (``parallel``; one process per GPU, every rank making the same call
+and returning the whole result): under data parallelism a batch pads to a
+multiple of the ``data`` axis with copies of row 0 (and its seed), each
+rank prefills and decodes its rows, the lagged all-done flag is a max over
+``data``, and the codes and done flags are all-gathered once at the end;
+under tensor parallelism the stages run on this rank's weight shards and
+KV heads (``tp``); under sequence parallelism the prefill splits the
+prompt over ``model`` (``sp_mesh``) and writes the whole cache, which is
+the decode layout. The vocoder runs the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...parallel.collectives import all_gather, all_reduce_max, all_reduce_sum, vocab_embed
 from ...utils import prng, profiling
 from ...utils.tokenizer import load_tokenizer
 from .. import transformer as tfm
@@ -123,12 +134,13 @@ def init_params(cfg: QwenTTSConfig, seed: int = 0, device=None) -> Params:
 
 
 def prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
-                  spk_ids, spk_mask, attn_mask) -> torch.Tensor:
+                  spk_ids, spk_mask, attn_mask, tp=None) -> torch.Tensor:
     """Assemble the prompt embeddings from the host-built index/mask arrays
     (the [spk?][ref text][text][ref codes][BOS] layout of
-    ``_build_prompt_arrays``)."""
+    ``_build_prompt_arrays``). Under ``tp`` the text table is this rank's
+    vocab shard."""
     dt = params["text_embed"].dtype
-    emb = params["text_embed"][ids_slotted] * text_mask[..., None].to(dt)
+    emb = vocab_embed(params["text_embed"], ids_slotted, tp) * text_mask[..., None].to(dt)
     for q in range(cfg.codec.n_codebooks):
         emb = emb + params["audio_embed"][q][codes_slotted[..., q]] * code_mask[..., None].to(dt)
     emb = emb + params["speaker_embed"][spk_ids][:, None, :] * spk_mask[..., None].to(dt)
@@ -138,18 +150,20 @@ def prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
 
 
 def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_ids,
-             spk_mask, rope_pos, attn_mask, cache_k, cache_v, key_valid):
+             spk_mask, rope_pos, attn_mask, cache_k, cache_v, key_valid, tp=None, sp_mesh=None):
     """Prompt-embedding assembly + prefill. Writes the caches in place.
 
-    Returns ``(logits (B, V) f32, cache_k, cache_v, key_valid)``.
+    ``tp``: the mesh axis the weights are sharded over; ``sp_mesh``: a
+    sequence-parallel prefill (``transformer.stack_forward``). Returns
+    ``(logits (B, V) f32, cache_k, cache_v, key_valid)``.
     """
     p = ids_slotted.shape[1]
     embeds = prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
-                           spk_ids, spk_mask, attn_mask)
+                           spk_ids, spk_mask, attn_mask, tp)
     h, (ck, cv) = tfm.stack_forward(
         params["talker"], cfg.talker, embeds, rope_pos,
         kv_caches=(cache_k, cache_v), cache_len=0, attn_mask=attn_mask,
-        key_valid=key_valid, fused_prefill=True,
+        key_valid=key_valid, fused_prefill=True, sp_mesh=sp_mesh, tp=tp,
     )
     key_valid = key_valid.clone()
     key_valid[:, :p] = attn_mask
@@ -197,8 +211,9 @@ def _derive_row_seeds(key: torch.Tensor, n: int) -> torch.Tensor:
     return prng.randint(key, (int(n),), 0, int(np.iinfo(np.int32).max))
 
 
-def _predict_residuals(params, cfg, h_last, tok0):
-    """Predict residual codebooks from hidden state + primary-code embed."""
+def _predict_residuals(params, cfg, h_last, tok0, tp=None):
+    """Predict residual codebooks from hidden state + primary-code embed.
+    Under ``tp`` ``w1`` is column- and ``w2`` row-parallel."""
     n_res = cfg.codec.n_codebooks - 1
     if n_res == 0:
         return torch.zeros((h_last.shape[0], 0), dtype=torch.int64, device=h_last.device)
@@ -206,18 +221,18 @@ def _predict_residuals(params, cfg, h_last, tok0):
     e0 = params["audio_embed"][0][tok0]  # (B, H)
     cp_in = torch.cat([h_last, e0], dim=-1).to(w1.dtype)
     hidden = F.silu(torch.einsum("bd,qdc->qbc", cp_in, w1).float())
-    logits = torch.einsum("qbc,qce->qbe", hidden.to(w2.dtype), w2)
+    logits = all_reduce_sum(torch.einsum("qbc,qce->qbe", hidden.to(w2.dtype), w2), tp)
     return torch.argmax(logits, dim=-1).T  # (B, Q)
 
 
 def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_base,
                   last_codes, done, seeds, temperature, step_base: int, min_frames: int,
-                  steps: int, top_k: int):
+                  steps: int, top_k: int, tp=None):
     """``steps`` AR decode steps from cache slot ``slot0``.
 
     The JAX scan as a Python loop: caches and ``key_valid`` are updated in
-    place. Returns ``(codes (B, steps, nq), done (B, steps), cache_k,
-    cache_v, key_valid, last_codes, done)``.
+    place; ``tp`` as :func:`_prefill`. Returns ``(codes (B, steps, nq),
+    done (B, steps), cache_k, cache_v, key_valid, last_codes, done)``.
     """
     b = last_codes.shape[0]
     nq = cfg.codec.n_codebooks
@@ -236,7 +251,7 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
         h, _ = tfm.stack_forward(
             params["talker"], cfg.talker, emb[:, None, :], (rope_base + t)[:, None],
             kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
-            key_valid=key_valid,
+            key_valid=key_valid, tp=tp,
         )
         key_valid[:, slot] = True
         h_last = h[:, -1]
@@ -246,7 +261,8 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
         tok0 = _sample_with_noise(logits, temperature, top_k, noise[t])
         newly_done = tok0 == cfg.audio_eos
         tok0 = torch.where(done, cfg.audio_pad, tok0)
-        res = _predict_residuals(params, cfg, h_last, tok0.clamp_max(cfg.codec.codebook_size - 1))
+        res = _predict_residuals(params, cfg, h_last, tok0.clamp_max(cfg.codec.codebook_size - 1),
+                                 tp)
         res = torch.where(done[:, None], 0, res)
         codes = torch.cat([tok0[:, None], res], dim=-1)
         done = done | newly_done
@@ -326,7 +342,8 @@ class QwenTTSModel(nn.Module):
     directory, supplies its ``tokenizer.json`` when it has one.
     ``lora_path``, an adapter directory (``models.qwen.lora.save_lora``),
     is merged into the dense weights before any quantization; a quantized
-    base raises ``ValueError``.
+    base raises ``ValueError``. ``parallel.inference.enable_*`` put the
+    model on a mesh (``mesh``, ``tp_axis``, ``seq_parallel``).
     """
 
     def __init__(self, config: QwenTTSConfig, params: Optional[Params] = None, seed: int = 0,
@@ -362,6 +379,12 @@ class QwenTTSModel(nn.Module):
         self.params = {key: _register(self, key, value) for key, value in params.items()}
         self.sample_rate = config.codec.sample_rate
         self._ref_codes_cache: Dict[str, np.ndarray] = {}
+        #: the device mesh (``parallel.inference``); None = one device
+        self.mesh = None
+        #: the mesh's ``model`` axis when the talker weights are sharded over it
+        self.tp_axis = None
+        #: prefill's prompt axis over the mesh's ``model`` axis
+        self.seq_parallel = False
 
     # -- Loading --------------------------------------------------------------
 
@@ -421,6 +444,10 @@ class QwenTTSModel(nn.Module):
         """
         from .. import checkpoint as ckpt_lib
 
+        if self.tp_axis is not None:
+            raise ValueError("a tensor-parallel model holds this rank's weight shards: save "
+                             "the checkpoint before enable_tensor_parallel")
+
         variant = getattr(self, "variant", None) or (
             "custom-voice" if "CustomVoice" in str(self.model_path or "") else "base"
         )
@@ -428,6 +455,41 @@ class QwenTTSModel(nn.Module):
             path, self.params, family="qwen", preset=self.config.name,
             quantization=self.quantization, extra={"variant": variant},
         )
+
+    # -- Mesh helpers ----------------------------------------------------------
+
+    def _data_axis(self):
+        return None if self.mesh is None else self.mesh.axis("data")
+
+    def _shard(self, x, batch_axis: int = 0):
+        """This rank's rows of one array (numpy or tensor): the batch axis
+        split over the mesh's ``data`` axis."""
+        data = self._data_axis()
+        if data is None or data.size == 1:
+            return x
+        n = x.shape[batch_axis] // data.size
+        idx = (slice(None),) * batch_axis + (slice(data.index * n, (data.index + 1) * n),)
+        return x[idx]
+
+    def _dp_pad(self, n: int) -> int:
+        """Rows of padding needed so the batch divides the data axis."""
+        data = self._data_axis()
+        return 0 if data is None else (-n) % data.size
+
+    def _shard_kv(self, b: int, s: int):
+        """This rank's ``(L, b, s, Hkv, D)`` KV caches: ``b`` local rows and,
+        under tensor parallelism, the local KV heads (JAX's ``_shard_kv``
+        lays out a global cache; here the shard is allocated directly)."""
+        return tfm.make_kv_cache(tfm.local_config(self.config.talker, self.tp_axis), b, s,
+                                 device=self.device)
+
+    def _all_done(self, done: torch.Tensor) -> torch.Tensor:
+        """The batch's all-done flag, over every data rank's rows."""
+        data = self._data_axis()
+        if data is None or data.size == 1:
+            return done.all()
+        busy = (~done).any().to(torch.int32).reshape(1)
+        return all_reduce_max(busy, data)[0] == 0
 
     # -- Reference audio conditioning --------------------------------------
 
@@ -568,7 +630,7 @@ class QwenTTSModel(nn.Module):
         """Device-tensor core of :meth:`generate_codes`.
 
         Returns ``(codes (B, T, nq), done (B, T), n_real)`` on the model's
-        device.
+        device: the whole (padded) batch, on every rank of a mesh.
         """
         cfg = self.config
         dev = self.device
@@ -582,8 +644,17 @@ class QwenTTSModel(nn.Module):
                 arrays, lens, p = self._build_prompt_arrays(
                     texts, speaker, language, ref_audio, ref_text
                 )
-        n_real = b = len(texts)
-        a = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        # Data parallelism: pad the batch to a multiple of the data axis
+        # with copies of row 0; each rank takes its rows.
+        n_real = len(texts)
+        pad_rows = self._dp_pad(n_real)
+        if pad_rows:
+            arrays = {k: np.concatenate([v, np.repeat(v[:1], pad_rows, axis=0)])
+                      for k, v in arrays.items()}
+            lens = lens + [lens[0]] * pad_rows
+        a = {k: torch.from_numpy(np.ascontiguousarray(self._shard(v))).to(dev)
+             for k, v in arrays.items()}
+        b = a["attn_mask"].shape[0]
 
         if max_frames is None:
             max_chars = max(len(t) for t in texts)
@@ -591,14 +662,15 @@ class QwenTTSModel(nn.Module):
         n_chunks = _round_up(max_frames, _chunk()) // _chunk()
         s = p + n_chunks * _chunk()
 
-        cache_k, cache_v = tfm.make_kv_cache(cfg.talker, b, s, device=dev)
+        cache_k, cache_v = self._shard_kv(b, s)
         key_valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
 
         with profiling.stage("qwen/prefill"):
             logits, cache_k, cache_v, key_valid = _prefill(
                 self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
                 a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-                cache_k, cache_v, key_valid,
+                cache_k, cache_v, key_valid, tp=self.tp_axis,
+                sp_mesh=self.mesh if self.seq_parallel else None,
             )
 
         if seeds is None:
@@ -609,6 +681,9 @@ class QwenTTSModel(nn.Module):
             seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
                 torch.as_tensor(np.asarray(seeds, np.int64))
         seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
+        if pad_rows:  # one seed per real row: padding never shifts a real row
+            seeds_b = torch.cat([seeds_b, seeds_b[:1].expand(pad_rows)])
+        seeds_b = self._shard(seeds_b)
         if min_frames > 0:
             logits[:, cfg.audio_eos] = -1e30
         tok0 = _sample_token_seeded(
@@ -620,7 +695,7 @@ class QwenTTSModel(nn.Module):
                                         device=dev)], dim=-1,
         )
         done = tok0 == cfg.audio_eos
-        rope_base = torch.as_tensor(lens, dtype=torch.int64).to(dev)
+        rope_base = self._shard(torch.as_tensor(lens, dtype=torch.int64)).to(dev)
 
         # Code/done chunks accumulate on the device; the early exit reads the
         # PREVIOUS chunk's all-done flag, so the host never waits on the chunk
@@ -638,16 +713,18 @@ class QwenTTSModel(nn.Module):
                  done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,
                     rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                    slot0 - p + 1, min_frames, _chunk(), top_k,
+                    slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis,
                 )
             all_codes.append(codes_chunk)
             all_done.append(done_chunk)
             slot0 += _chunk()
             if prev_flag is not None and bool(prev_flag):
                 break
-            prev_flag = done.all()
+            prev_flag = self._all_done(done)
 
-        return torch.cat(all_codes, dim=1), torch.cat(all_done, dim=1), n_real
+        data = self._data_axis()
+        return (all_gather(torch.cat(all_codes, dim=1), 0, data),
+                all_gather(torch.cat(all_done, dim=1), 0, data), n_real)
 
     @torch.inference_mode()
     def synthesize(self, texts: Union[str, Sequence[str]], speaker: Optional[str] = None,
@@ -734,13 +811,13 @@ class QwenTTSModel(nn.Module):
         cfg = self.config
         arrays, lens, p = self._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
         s = p + int(decode_slots)
-        cache_k, cache_v = tfm.make_kv_cache(cfg.talker, 1, s, device=self.device)
+        cache_k, cache_v = self._shard_kv(1, s)  # one stream: the row stays on every rank
         key_valid = torch.zeros((1, s), dtype=torch.bool, device=self.device)
         a = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
         logits, ck, cv, kv = _prefill(
             self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
             a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-            cache_k, cache_v, key_valid,
+            cache_k, cache_v, key_valid, tp=self.tp_axis,
         )
         return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0])}
 
@@ -820,7 +897,7 @@ class QwenTTSModel(nn.Module):
                  done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,
                     rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                    slot0 - p + 1, min_frames, _chunk(), top_k,
+                    slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis,
                 )
             slot0 += _chunk()
             cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()

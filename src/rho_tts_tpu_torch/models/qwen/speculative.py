@@ -78,7 +78,8 @@ def _embed_codes(params: Params, codes: torch.Tensor) -> torch.Tensor:
 def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d_cv, d_kv,
                  t_slot0: int, d_slot0: int, pos0: int, last_codes: torch.Tensor,
                  rng: torch.Tensor, temperature: float, min_frames: int, gamma: int,
-                 max_rounds: int, top_k: int, cap: int, residual_mode: str = "strict"):
+                 max_rounds: int, top_k: int, cap: int, residual_mode: str = "strict",
+                 t_axis=None, d_axis=None):
     """The speculation loop. Returns ``(codes (cap, nq), n_emitted, rounds)``
     on the device; entries past an EOS are pads, the caller slices.
 
@@ -87,6 +88,8 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
     the draft's residuals (the verification's inputs) disagree; "draft":
     accepted slots emit the draft's residual codebooks, no truncation. See
     the JAX package's ``_spec_decode``. The caches are written in place.
+    ``t_axis`` / ``d_axis``: the mesh axis each model's weights are sharded
+    over (tensor parallelism), or None.
     """
     dev = t_ck.device
     eos, pad = cfg_t.audio_eos, cfg_t.audio_pad
@@ -128,6 +131,7 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
             h, _ = tfm.stack_forward(
                 dp["talker"], cfg_d.talker, x, (pos + i)[None, None],
                 kv_caches=(d_ck, d_cv), cache_len=slot, attn_mask=None, key_valid=d_kv,
+                tp=d_axis,
             )
             tfm.scatter_rows(d_kv, slot[:, None], torch.ones((1, 1), dtype=torch.bool,
                                                               device=dev))
@@ -137,7 +141,7 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
             keys = prng.split(rng)
             rng = keys[0]
             prim = _sample_from(q, keys[1])
-            res_d = _predict_residuals(dp, cfg_d, h[0, -1][None], prim[None])[0]
+            res_d = _predict_residuals(dp, cfg_d, h[0, -1][None], prim[None], d_axis)[0]
             codes_in = torch.cat([prim[None], res_d.to(torch.int64)])
             d_codes_all.append(codes_in)
             qs_all.append(q)
@@ -151,6 +155,7 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
         h, _ = tfm.stack_forward(
             tp["talker"], cfg_t.talker, x, (pos + ar_g1)[None],
             kv_caches=(t_ck, t_cv), cache_len=t_slot, attn_mask=None, key_valid=t_kv,
+            tp=t_axis,
         )
         logits_all = h[0].float() @ lm_t  # (gamma+1, V)
         _suppress_eos(logits_all, eos, (n_out + 1 + ar_g1) < min_frames)
@@ -168,7 +173,7 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
         rej = torch.cat([accept, accept.new_zeros(1)]).to(torch.int32).argmin()
         n_p = torch.where(all_acc, gamma, rej).to(torch.int64)
         if residual_mode == "strict":
-            res_t_draft = _predict_residuals(tp, cfg_t, h[0, :gamma], d_prim)
+            res_t_draft = _predict_residuals(tp, cfg_t, h[0, :gamma], d_prim, t_axis)
             res_match = (res_t_draft.to(torch.int64) == d_codes[:, 1:]).all(dim=-1)
             m = torch.where(res_match.all(), gamma,
                             res_match.to(torch.int32).argmin()).to(torch.int64)
@@ -196,7 +201,7 @@ def _spec_decode(tp: Params, dp: Params, cfg_t, cfg_d, t_ck, t_cv, t_kv, d_ck, d
         emit_prim = torch.where(
             ar_g1 < n_eff, d_prim_pad,
             torch.where((ar_g1 == n_eff) & has_extra, extra, pad))
-        res_emit = _predict_residuals(tp, cfg_t, h[0], emit_prim).to(torch.int64)
+        res_emit = _predict_residuals(tp, cfg_t, h[0], emit_prim, t_axis).to(torch.int64)
         if residual_mode == "draft" and nq > 1:
             d_res_pad = torch.cat([d_codes[:, 1:], d_codes.new_zeros((1, nq - 1))])
             res_emit = torch.where((ar_g1 < n_eff)[:, None], d_res_pad, res_emit)
@@ -294,6 +299,7 @@ def speculative_generate_codes(target, draft, text: str, speaker: Optional[str] 
             t_pre["ck"], t_pre["cv"], t_pre["kv"], d_pre["ck"], d_pre["cv"], d_pre["kv"],
             t_pre["slot0"], d_pre["slot0"], t_pre["pos0"], first_codes, rng,
             temperature, min_frames, gamma, max_rounds, int(top_k), cap, residual_mode,
+            target.tp_axis, draft.tp_axis,
         )
         codes_np = codes.cpu().numpy().astype(np.int32)
         n, r = int(n_out), max(int(rounds), 1)

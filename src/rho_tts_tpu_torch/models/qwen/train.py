@@ -28,8 +28,8 @@ The train state on disk is the port's own format: ``train_state.pt``, a
 the tree's order), the optimizer's ``state_dict()`` and the step. The JAX
 package's orbax directory is not read.
 
-Not ported: ``_constrain`` (a mesh hint; the mesh comes with ROADMAP queue 1
-item 12).
+Not ported: ``_constrain`` (a mesh hint; sharded training is ROADMAP queue
+1 item 12b).
 """
 
 from __future__ import annotations

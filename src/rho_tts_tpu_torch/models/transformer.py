@@ -24,6 +24,12 @@ kernels have no backward and raise when reached under autograd.
 
 Unlike the JAX package, the stacked caches are updated IN PLACE: the
 caller's ``(L, B, S, Hkv, D)`` tensors are written and returned.
+
+Meshes (``parallel``): under tensor parallelism (``tp``, the mesh's
+``model`` axis) the weights are this rank's shards, the block computes its
+local heads (:func:`local_config`) and sums the row-parallel ``wo`` and
+``w_down`` over the axis. A sequence-parallel prefill (``sp_mesh``) runs
+each rank's slice of the prompt and all-gathers K/V for the attention.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.attention import fused_gqa_attention
+from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
+from ..parallel.collectives import all_gather
 from .quantization import matmul as qmm
 
 Params = Dict[str, Any]
@@ -156,15 +163,16 @@ def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope):
 
 
 def _out_and_mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor,
-                 attn: torch.Tensor) -> torch.Tensor:
-    """Output projection and residual, then the SwiGLU MLP and residual."""
+                 attn: torch.Tensor, tp=None) -> torch.Tensor:
+    """Output projection and residual, then the SwiGLU MLP and residual.
+    Under ``tp`` the row-parallel ``wo`` and ``w_down`` sum over the axis."""
     b, t, _ = x.shape
     attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
-    x = x + qmm(attn, params["wo"])
+    x = x + qmm(attn, params["wo"], reduce=tp)
     h = rms_norm(x, params["mlp_norm"], cfg.rms_eps)
     gate = F.silu(qmm(h, params["w_gate"]).float())
     up = qmm(h, params["w_up"]).float()
-    return x + qmm((gate * up).to(x.dtype), params["w_down"])
+    return x + qmm((gate * up).to(x.dtype), params["w_down"], reduce=tp)
 
 
 def _masked_attention(q, k, v, mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -297,15 +305,22 @@ def _block_forward_cached(
     slot,  # int (batch-uniform) or (B,) tensor of per-row write columns
     attn_mask: Optional[torch.Tensor],  # (B, T) validity of the new tokens
     mask: Optional[torch.Tensor],  # (B, S) when T == 1, (B, 1, T, S) when T > 1
+    tp=None,
+    sp=None,
 ) -> torch.Tensor:
     """One cached transformer block writing its K/V at ``[slot, slot+T)``.
 
     ``mask`` is the complete key mask built once by :func:`stack_forward`;
     ``None`` means the chunk is a prefill into an empty cache, which the
-    prefill kernel runs over the fresh q/k/v.
+    prefill kernel runs over the fresh q/k/v. Under ``sp`` (a sequence-
+    parallel prefill) ``x`` is this rank's slice of the prompt and
+    ``attn_mask`` the whole prompt's: K/V are all-gathered, written whole
+    and attended by the local queries at their global offset.
     """
-    b, t, _ = x.shape
     q, k, v = _qkv(params, cfg, x, rope)
+    if sp is not None:
+        k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
+    b, t = k.shape[:2]
 
     if isinstance(slot, int):
         ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
@@ -321,14 +336,17 @@ def _block_forward_cached(
         pmask = attn_mask if attn_mask is not None else torch.ones(
             (b, t), dtype=torch.bool, device=x.device
         )
-        attn = fused_gqa_attention(q, k, v, pmask, causal=True)
+        if sp is not None:
+            attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
+        else:
+            attn = fused_gqa_attention(q, k, v, pmask, causal=True)
     elif t == 1:
         attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
     else:
         # T > 1 over a used cache (speculative verify): JAX computes it as
         # plain masked attention (its einsum branch), and so does the port.
         attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
-    return _out_and_mlp(params, cfg, x, attn)
+    return _out_and_mlp(params, cfg, x, attn, tp)
 
 
 def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, block_causal):
@@ -385,6 +403,7 @@ def stack_forward(
     slot_causal: bool = True,
     block_causal: bool = False,
     sp_mesh=None,
+    tp=None,
 ):
     """Run the block stack, over the stacked caches or without them.
 
@@ -407,22 +426,49 @@ def stack_forward(
     ``key_valid`` as the only gate (ring caches); ``block_causal`` restores
     causality inside the newly written block.
 
-    ``kv_window`` (not ported: the decode kernel skips masked slots) and
-    ``sp_mesh`` (ROADMAP queue 1 item 12) raise ``NotImplementedError``.
+    ``tp`` (the mesh's ``model`` axis, weights sharded over it) runs the
+    local heads and sums the row-parallel matmuls; the caches hold the
+    local KV heads. ``sp_mesh`` makes a fused prefill into an empty cache
+    sequence-parallel: every rank passes the WHOLE prompt (``x``,
+    ``positions``, ``attn_mask``), computes its ``1/mp`` slice over the
+    mesh's ``model`` axis, writes every layer's whole K/V (all-gathered)
+    and returns the whole hidden states (all-gathered), as JAX's sharded
+    arrays read; other forwards ignore it, as JAX's do. ``tp`` is
+    inference-only (the collectives have no backward): the cache-less
+    forward raises under it.
+
+    ``kv_window`` (not ported: the decode kernel skips masked slots) raises
+    ``NotImplementedError``.
     """
     if kv_window is not None:
         raise NotImplementedError(
             "kv_window is not ported: the port decodes over the whole cache, whose masked "
             "slots the decode kernel skips")
-    if sp_mesh is not None:
-        raise NotImplementedError("sp_mesh is not ported yet: ROADMAP queue 1 item 12")
     blocks = params["blocks"]
+    cfg = local_config(cfg, tp)
+    sp = None
+    empty = cache_len is None or (isinstance(cache_len, int) and cache_len == 0)
+    if sp_mesh is not None and kv_caches is not None and fused_prefill and x.shape[1] > 1 \
+            and empty:
+        sp = sp_mesh.axis("model")
+        t_all = x.shape[1]
+        if t_all % sp.size:
+            raise ValueError(f"sp_mesh: a prompt of {t_all} does not divide over {sp.size}")
+        tl = t_all // sp.size
+        x = x[:, sp.index * tl: (sp.index + 1) * tl]
+        positions = positions[:, sp.index * tl: (sp.index + 1) * tl]
+        if attn_mask is None:
+            attn_mask = torch.ones((x.shape[0], t_all), dtype=torch.bool, device=x.device)
     rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     # Per-layer views by unbind: its backward stacks the L layers' gradients
     # once, where indexing (L, ...) per layer would zero-fill and add a whole
     # (L, ...) gradient for every layer.
     per_layer = {name: _unbind(w) for name, w in blocks.items()}
     if kv_caches is None:
+        if tp is not None:
+            raise NotImplementedError(
+                "a tensor-parallel cache-less forward (sharded training) is not ported yet: "
+                "ROADMAP queue 1 item 12b")
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
         ks, vs = [], []
         for layer in range(int(blocks["attn_norm"].shape[0])):
@@ -455,9 +501,24 @@ def stack_forward(
 
     for layer in range(int(ck_all.shape[0])):
         lp = {name: w[layer] for name, w in per_layer.items()}
-        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask)
+        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
+                                  tp, sp)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if sp is not None:
+        x = all_gather(x, 1, sp)
     return x, (ck_all, cv_all)
+
+
+@functools.lru_cache(maxsize=None)
+def _heads_over(cfg: TransformerConfig, n: int) -> TransformerConfig:
+    return dataclasses.replace(cfg, q_heads=cfg.q_heads // n, kv_heads=cfg.kv_heads // n)
+
+
+def local_config(cfg: TransformerConfig, tp=None) -> TransformerConfig:
+    """``cfg`` with this rank's head counts when the heads split over ``tp``."""
+    if tp is None or tp.size == 1:
+        return cfg
+    return _heads_over(cfg, tp.size)
 
 
 def _unbind(w):

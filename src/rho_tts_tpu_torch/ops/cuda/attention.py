@@ -160,3 +160,25 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
         raise RuntimeError(f"prefill attention kernel launch failed: cudaError_t {rc}")
     launches += 1
     return out
+
+
+def sp_fused_gqa_attention(q, k, v, attn_mask, axis, causal: bool = True):
+    """Sequence-parallel prefill attention (JAX's ``sp_fused_gqa_attention``).
+
+    ``q`` ``(B, T/n, Hq, D)`` is this rank's query shard of a prompt split
+    over ``axis`` (``parallel.mesh.Axis``, n members), at global positions
+    ``[axis.index * T/n, ...)``. ``k``, ``v`` and ``attn_mask`` are this
+    rank's shards, all-gathered here over the axis, or already the whole
+    sequence (``(B, T, ...)``, as the SP prefill passes them after writing
+    its cache). The kernel then runs on the local queries at their global
+    ``q_offset``; the output is the local ``(B, T/n, Hq, D)``.
+    """
+    from ...parallel.collectives import all_gather
+
+    tl = q.shape[1]
+    whole = tl * axis.size
+    if k.shape[1] != whole:
+        k, v = all_gather(k, 1, axis), all_gather(v, 1, axis)
+    if attn_mask.shape[1] != whole:
+        attn_mask = all_gather(attn_mask, 1, axis)
+    return fused_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=axis.index * tl)

@@ -11,8 +11,10 @@ Sampling draws the JAX package's bits: each model call takes a fresh key
 from the engine's threefry chain (:meth:`BaseTTS.next_rng`), so the same
 seed gives the same tokens in both packages.
 
-``parallelism`` is not ported yet and raises ``NotImplementedError``
-(ROADMAP queue 1 item 12).
+``parallelism`` ("data" or "tensor") starts the process group from the
+environment before the model loads and puts it on a mesh of the world's
+ranks (``parallel.enable_parallelism``), as ``QwenTTS`` does; both the
+one-shot and the serving paths run meshed.
 
 Capability parity: reference ``src/rho_tts/providers/chatterbox.py:21-167``
 (constructor surface :45-102, prompt cache :113-121, faster caps :125-127,
@@ -67,7 +69,11 @@ class ChatterboxTTS(BaseTTS):
             (transformer rows = 2x for the CFG pairs; default 4).
         serving_max_prompt: Engine prompt-token cap (default 128).
         serving_max_frames: Engine per-request frame cap (default 1024).
-        parallelism, n_devices: multi-GPU decode (ROADMAP queue 1 item 12).
+        parallelism: None (one GPU), "data" (replicated weights; serving
+            slots over the ranks) or "tensor" (talker weights sharded over
+            the mesh ``model`` axis). Both the one-shot and serving paths
+            run meshed.
+        n_devices: Mesh size (default: the world size).
     """
 
     MAX_MODEL_CHARS = 3000
@@ -99,10 +105,6 @@ class ChatterboxTTS(BaseTTS):
         parallelism: Optional[str] = None,
         n_devices: Optional[int] = None,
     ):
-        if parallelism is not None:
-            raise NotImplementedError(
-                f"ChatterboxTTS(parallelism={parallelism!r}) is not ported yet: ROADMAP queue 1 "
-                "item 12 (parallel/)")
         super().__init__(device, seed, deterministic, phonetic_mapping=phonetic_mapping)
 
         if implementation not in ("standard", "faster", "tiny"):
@@ -142,10 +144,22 @@ class ChatterboxTTS(BaseTTS):
         # pay the load.
         from ..models.chatterbox import ChatterboxModel
 
+        if parallelism not in (None, "data", "tensor"):
+            raise ValueError(f"Unknown parallelism mode: {parallelism!r}")
+        self.parallelism = parallelism
+        self.n_devices = n_devices
+        if parallelism:
+            from ..parallel.mesh import initialize_distributed
+
+            initialize_distributed(device=self.device)  # this rank's GPU first
         self.model = ChatterboxModel.from_pretrained(
             device=device, implementation=implementation, seed=seed,
             quantization=quantization, model_path=model_path,
         )
+        if parallelism:
+            from ..parallel import enable_parallelism
+
+            enable_parallelism(self.model, parallelism, n_devices)
         self._prompt_cache: Dict[str, np.ndarray] = {}
 
         if self.voice_cloning:

@@ -19,8 +19,12 @@ same codes in both packages.
 A per-voice LoRA adapter (``lora_path``, ``models.qwen.lora``) is merged
 into the dense weights at load, before quantization.
 
-``parallelism``, whose module is not ported yet, raises
-``NotImplementedError`` at construction, naming ROADMAP queue 1 item 12.
+``parallelism`` ("data" or "tensor") starts the process group from the
+environment (``torchrun``; ``parallel.mesh.initialize_distributed``)
+before the model loads, so it lands on this rank's GPU, and puts the
+loaded model on a mesh of the world's ranks (``parallel.enable_parallelism``;
+a world of one warns and stays unmeshed). Every rank calls ``generate``
+with the same inputs and gets the whole result.
 
 Capability parity: reference ``src/rho_tts/providers/qwen.py:22-413``
 (constructor surface :48-94, routing :218-266, post-processing :268-378,
@@ -41,10 +45,6 @@ from ..provider_info import ProviderInfo, VoiceInfo
 logger = logging.getLogger(__name__)
 
 DEFAULT_MODEL = "Qwen/Qwen3-TTS-12Hz-1.7B-Base"
-
-def _unported(option: str, item: str):
-    return NotImplementedError(f"QwenTTS({option}) is not ported yet: ROADMAP queue 1 {item}")
-
 
 class QwenTTS(BaseTTS):
     """Qwen3-TTS-class implementation with batch processing and validation.
@@ -73,7 +73,10 @@ class QwenTTS(BaseTTS):
         phonetic_mapping: Word-to-pronunciation overrides.
         quantization: "int8" or "int4" talker weights.
         min_audio_sec: Minimum generated duration (EOS masked below it).
-        parallelism, n_devices: multi-GPU serving (queue 1 item 12).
+        parallelism: None (one GPU), "data" (replicated weights, batch
+            rows over the ranks) or "tensor" (talker weights sharded over
+            the mesh ``model`` axis for checkpoints that exceed one GPU).
+        n_devices: Mesh size for parallel serving (default: the world size).
         draft_model_path: a smaller checkpoint (or preset) used as the
             speculative-decoding draft of single-segment generations: it
             proposes ``speculative_gamma`` codec tokens a round and the
@@ -132,9 +135,11 @@ class QwenTTS(BaseTTS):
         serving_max_prompt: int = 512,
         serving_max_frames: int = 1024,
     ):
-        if parallelism is not None:
-            raise _unported(f"parallelism={parallelism!r}", "item 12 (parallel/)")
         super().__init__(device, seed, deterministic, phonetic_mapping=phonetic_mapping)
+        if parallelism not in (None, "data", "tensor"):
+            raise ValueError(f"Unknown parallelism mode: {parallelism!r}")
+        self.parallelism = parallelism
+        self.n_devices = n_devices
 
         if reference_audio is not None and reference_text is None:
             raise ValueError(
@@ -192,10 +197,15 @@ class QwenTTS(BaseTTS):
             from ..models.qwen import QwenTTSModel
 
             logger.info("Loading Qwen-TTS model '%s'...", self.model_path)
+            if self.parallelism:
+                from ..parallel.mesh import initialize_distributed
+
+                initialize_distributed(device=self.device)  # this rank's GPU first
             self._model = QwenTTSModel.from_pretrained(
                 self.model_path, seed=self.seed, quantization=self.quantization,
                 device=self.device, lora_path=self.lora_path,
             )
+            self._enable_mesh(self._model)
             # Refine max model chars from the checkpoint's context length
             mpe = self._model.config.max_position_embeddings
             if mpe:
@@ -215,6 +225,17 @@ class QwenTTS(BaseTTS):
                 device=self.device,
             )
         return self._draft_model
+
+    def _enable_mesh(self, model):
+        """Switch the loaded model to multi-GPU serving if requested:
+        ``"data"`` replicates the weights and spreads batch rows over the
+        ranks; ``"tensor"`` shards the talker weights over the mesh
+        ``model`` axis, with any leftover ranks forming a ``data`` axis."""
+        if not self.parallelism:
+            return
+        from ..parallel import enable_parallelism
+
+        enable_parallelism(model, self.parallelism, self.n_devices)
 
     def _initialize_reference_embedding(self):
         """Compute the reference speaker embedding for similarity checks."""

@@ -36,8 +36,28 @@ it (:meth:`ServeRequest.result`, :meth:`ServeRequest.chunks`,
 ``ServeRequest.wav``). On the CPU the same code runs without streams.
 
 With a ``draft_model``, the slot batch decodes by draft-verify speculation
-(``serving_spec``). A model with a device mesh raises
-``NotImplementedError`` (ROADMAP queue 1 item 12).
+(``serving_spec``).
+
+Mesh serving (a model put on a mesh by ``parallel.inference``; one
+process per GPU): slot rows split over ``data`` (``n_slots`` must be a
+multiple of it) and KV heads over ``model`` under tensor parallelism, the
+layout of the one-shot paths. Every rank submits the same requests in the
+same order and every rank keeps the same schedule, so every rank reaches
+the same collectives in the same order and resolves every request with the
+whole result. The schedule is the mesh's first rank's: at each step it
+picks the admission group from its queue, drops cancelled and expired
+requests and notes which slot rows were cancelled, and broadcasts that by
+submission index over the mesh's gloo ``control`` axis; the other ranks
+apply it to their own queues (waiting for a request their caller has not
+submitted yet) and never read their own clocks, cancel flags or thread
+timing. A background thread (:meth:`ServingEngine.start`) stops when the
+first rank stops. An admission group prefills on every data rank (it is small and
+bucketed) and each rank scatters the rows it holds; a chunk's done flags
+are all-gathered over ``data`` before their lagged copy (on the card the
+gather is queued on the engine's stream, so the copy still adds no host
+wait); retirement and streaming vocode from the code log all-gathered over
+``data``. Speculative serving over a mesh raises, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -48,6 +68,7 @@ import os
 import queue as _queue
 import threading
 import time
+import zlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -69,11 +90,15 @@ from .models.qwen.model import (
     _vocode_rows,
 )
 from .models.qwen.speculative import _embed_codes, _suppress_eos
+from .parallel.collectives import all_gather, broadcast
 from .utils import profiling
 
 logger = logging.getLogger(__name__)
 
 Params = Dict[str, Any]
+
+#: how long a rank waits for a request the mesh's first rank admitted
+FOLLOW_TIMEOUT_S = 600.0
 
 # One lock for all requests' done-callback registration.
 _CB_LOCK = threading.Lock()
@@ -131,7 +156,7 @@ class _Lagged:
 
 def _serve_decode_chunk(params: Params, cache_k, cache_v, key_valid, codes_buf, cfg, col0: int,
                         rope_next, last_codes, done, active, seeds, temperature, frames_done,
-                        min_frames, steps: int, top_k: int):
+                        min_frames, steps: int, top_k: int, tp=None):
     """``steps`` decode steps over the slot batch with ring writes at global
     column ``col0 + t`` (mod S). Caches, ``key_valid`` and ``codes_buf`` are
     written in place.
@@ -141,7 +166,8 @@ def _serve_decode_chunk(params: Params, cache_k, cache_v, key_valid, codes_buf, 
     column that wraps, ``slot_causal=False`` attention, and an ``active``
     mask so empty slots mark no column valid. The chunk's codes append to
     ``codes_buf`` at each row's frame positions (the frame at the first EOS
-    and after it zeroed; positions past the log's end dropped).
+    and after it zeroed; positions past the log's end dropped). ``tp``: the
+    mesh axis the weights are sharded over.
 
     Returns ``(done_chunk (B, steps), last_codes, done, rope_next,
     frames_done)``.
@@ -162,7 +188,7 @@ def _serve_decode_chunk(params: Params, cache_k, cache_v, key_valid, codes_buf, 
             params["talker"], cfg.talker, _embed_codes(params, last_codes)[:, None, :],
             (rope_next + t)[:, None],
             kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=attn_mask,
-            key_valid=key_valid, slot_causal=False,
+            key_valid=key_valid, slot_causal=False, tp=tp,
         )
         key_valid[:, slot] = active
         h_last = h[:, -1]
@@ -172,7 +198,8 @@ def _serve_decode_chunk(params: Params, cache_k, cache_v, key_valid, codes_buf, 
         newly_done = tok0 == cfg.audio_eos
         dead = done | ~active
         tok0 = torch.where(dead, cfg.audio_pad, tok0)
-        res = _predict_residuals(params, cfg, h_last, tok0.clamp_max(cfg.codec.codebook_size - 1))
+        res = _predict_residuals(params, cfg, h_last, tok0.clamp_max(cfg.codec.codebook_size - 1),
+                                 tp)
         res = torch.where(dead[:, None], 0, res)
         last_codes = torch.cat([tok0[:, None], res], dim=-1)
         done = done | newly_done
@@ -258,6 +285,7 @@ class ServeRequest:
         self.t_admit: Optional[float] = None
         self.t_first_audio: Optional[float] = None
         self.t_done: Optional[float] = None
+        self._sid = -1  # submission index within its engine (set at enqueue)
 
     @property
     def wav(self) -> Optional[torch.Tensor]:
@@ -351,14 +379,34 @@ class _Slot:
     """Host-side bookkeeping for one batch row: frame counters and the EOS
     position (from the harvested done flags); the codes live on the device."""
 
-    __slots__ = ("req", "done_seen", "frames", "emitted", "pieces")
+    __slots__ = ("req", "done_seen", "frames", "emitted", "pieces", "cancel")
 
     def __init__(self):
         self.req: Optional[ServeRequest] = None
+        self.cancel = False  # the request's cancel, as the schedule saw it
         self.done_seen: Optional[int] = None  # frame index of the first EOS, if seen
         self.frames = 0  # frames harvested so far (frame 0 included)
         self.emitted = 0  # frames already streamed out (stream=True rows)
         self.pieces: List[torch.Tensor] = []  # streamed waveform pieces
+
+
+def _fingerprint(req: ServeRequest) -> int:
+    """A request's content as a 32-bit number (ranks compare theirs)."""
+    key = (req.text, req.speaker, req.language, req.ref_audio, req.ref_text, req.seed,
+           req.min_frames, req.max_frames, req.temperature, req.stream,
+           getattr(req, "cfg_weight", None))
+    return zlib.crc32(repr(key).encode())
+
+
+def _flat(pairs: List[Tuple[int, int]], n: int) -> List[int]:
+    """Up to ``n`` pairs as a flat list of ``2 * n``, padded with -1."""
+    out = [v for p in pairs for v in p]
+    return out + [-1] * (2 * n - len(out))
+
+
+def _pairs(flat: List[int], count: int) -> List[Tuple[int, int]]:
+    """The first ``count`` pairs of a flat list."""
+    return [(flat[2 * i], flat[2 * i + 1]) for i in range(count)]
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +421,7 @@ class ServingEngine:
     bound a request's prompt tokens and generated frames, which together
     size the KV ring. Submit from any thread; drive with :meth:`step` /
     :meth:`run_until_idle` (deterministic) or :meth:`start` (a background
-    thread).
+    thread). A model on a mesh serves over it (see the module docstring).
     """
 
     def __init__(self, model: QwenTTSModel, n_slots: int = 8, max_prompt: int = 256,
@@ -381,9 +429,6 @@ class ServingEngine:
                  stream_context: int = 32, max_queue: Optional[int] = None,
                  draft_model: Optional[QwenTTSModel] = None, gamma: int = 4,
                  residual_mode: str = "draft"):
-        if getattr(model, "mesh", None) is not None:
-            raise NotImplementedError(
-                "serving a model over a device mesh is not ported yet: ROADMAP queue 1 item 12")
         self.model = model
         self.cfg = model.config
         self.device = torch.device(model.device)
@@ -407,10 +452,10 @@ class ServingEngine:
             dcfg = draft_model.config
             if dcfg.audio_vocab != self.cfg.audio_vocab or dcfg.text_vocab != self.cfg.text_vocab:
                 raise ValueError("draft must share the target's text and codec vocabularies")
-            if getattr(draft_model, "mesh", None) is not None:
+            if model.mesh is not None or draft_model.mesh is not None:
                 raise NotImplementedError(
-                    "speculative serving over a device mesh is not ported yet: "
-                    "ROADMAP queue 1 item 12")
+                    "speculative serving over a device mesh is not wired yet; "
+                    "serve the draft single-device")
         # Ring capacity. Non-speculative: prompt + frames + one chunk of
         # lagged-retirement slack. Speculative: per-row columns rewind past
         # rejected proposals and reset at admission (no wrap); slack for the
@@ -425,7 +470,20 @@ class ServingEngine:
         self._start(seed, max_queue)
 
     def _start(self, seed: int, max_queue: Optional[int]) -> None:
-        """The engine's CUDA stream, its device state and its scheduler."""
+        """The engine's mesh layout, CUDA stream, device state and scheduler."""
+        self.mesh = self.model.mesh
+        self._data = None if self.mesh is None else self.mesh.axis("data")
+        self._tp = self.model.tp_axis
+        #: the mesh's control axis when it has more than one rank
+        self._ctl = (self.mesh.control if self.mesh is not None and self.mesh.control.size > 1
+                     else None)
+        dp = 1 if self._data is None else self._data.size
+        if self.n_slots % dp:
+            raise ValueError(
+                f"n_slots ({self.n_slots}) must be a multiple of the mesh data axis ({dp})")
+        #: this rank's slot rows are [_row_lo, _row_lo + _n_local)
+        self._n_local = self.n_slots // dp
+        self._row_lo = 0 if self._data is None else self._data.index * self._n_local
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(device=self.device)
@@ -444,10 +502,11 @@ class ServingEngine:
         return stack
 
     def _alloc_state(self) -> None:
-        """The ring, the per-row decode state and the code log, on the device."""
-        b, dev, nq = self.n_slots, self.device, self.cfg.codec.n_codebooks
+        """The ring, the per-row decode state and the code log, on the device
+        (this rank's slot rows and, under TP, KV heads)."""
+        b, dev, nq = self._n_local, self.device, self.cfg.codec.n_codebooks
         i64 = dict(dtype=torch.int64, device=dev)
-        self._cache_k, self._cache_v = tfm.make_kv_cache(self.cfg.talker, b, self.ring, device=dev)
+        self._cache_k, self._cache_v = self.model._shard_kv(b, self.ring)
         self._key_valid = torch.zeros((b, self.ring), dtype=torch.bool, device=dev)
         self._last_codes = torch.zeros((b, nq), **i64)
         self._done = torch.ones((b,), dtype=torch.bool, device=dev)
@@ -472,6 +531,8 @@ class ServingEngine:
         """Host-side scheduling state: queue, slots, locks, stats."""
         self._seed0 = int(seed)
         self._n_submitted = 0  # drives default per-request seeds
+        self._n_enqueued = 0  # submission indices (the schedule's request ids)
+        self._queued = False  # requests stayed queued after this step's admission
         self._active = np.zeros(self.n_slots, bool)  # host mirror (scheduling)
         self._slots = [_Slot() for _ in range(self.n_slots)]
         self._col = 0  # global write column (kept in [0, ring))
@@ -493,6 +554,17 @@ class ServingEngine:
         self.admissions = 0  # admission groups prefilled
         self._t_first: Optional[float] = None
         self._t_last: Optional[float] = None
+
+    def _own(self, rows: List[int]) -> Tuple[List[int], List[int]]:
+        """The positions in ``rows`` (global slot rows) whose row this rank
+        holds, and those rows' local indices."""
+        js = [j for j, r in enumerate(rows) if 0 <= r - self._row_lo < self._n_local]
+        return js, [rows[j] - self._row_lo for j in js]
+
+    def _codes_log(self) -> torch.Tensor:
+        """The whole ``(n_slots, F, ...)`` code log: every data rank's rows
+        (this rank's own log without a data axis)."""
+        return all_gather(self._codes_buf, 0, self._data)
 
     # -- submission ---------------------------------------------------------
 
@@ -536,6 +608,9 @@ class ServingEngine:
         """Priority-FIFO insert, and wake the serving thread."""
         priority = req.priority
         with self._wake:
+            # Counted before any refusal, so ranks keep the same indices.
+            req._sid = self._n_enqueued
+            self._n_enqueued += 1
             if self._loop_error is not None:
                 raise RuntimeError(
                     f"serving engine is down: {self._loop_error!r}") from self._loop_error
@@ -561,22 +636,78 @@ class ServingEngine:
             req._chunk_q.put(None)
         req._resolve()
 
-    def _admit(self) -> int:
-        """Move queued requests into free slots; one bucketed prefill per
-        admission group. Returns the number admitted."""
-        free = self._free_rows()
-        picked: List[ServeRequest] = []
-        with self._lock:
-            now = time.time()
-            while free[len(picked):] and self._queue:
-                req = self._queue.popleft()
-                if req.cancelled or (req.expires_s is not None
-                                     and now - req.t_submit > req.expires_s):
-                    if not req.cancelled:
-                        req.error = TimeoutError(f"queued longer than expires_s={req.expires_s}s")
-                    self._end_request(req)
-                    continue
-                picked.append(req)
+    def _plan(self, stop: bool) -> Tuple[bool, List[ServeRequest]]:
+        """This step's schedule, the same on every rank: whether to stop and
+        the admission group (see the module docstring). Drops cancelled and
+        expired requests, marks cancelled slot rows and sets ``_queued``."""
+        ctl = self._ctl
+        n = self.n_slots
+        if ctl is None or ctl.index == 0:
+            picked, drops = [], []
+            if not stop:
+                free = len(self._free_rows())
+                with self._lock:
+                    now = time.time()
+                    while len(picked) < free and len(drops) < n and self._queue:
+                        req = self._queue.popleft()
+                        if req.cancelled:
+                            drops.append((req, 1))
+                        elif req.expires_s is not None and now - req.t_submit > req.expires_s:
+                            drops.append((req, 2))
+                        else:
+                            picked.append(req)
+                    self._queued = bool(self._queue)
+            cancel = [int(s.req is not None and s.req.cancelled) for s in self._slots]
+            if ctl is not None:
+                rec = [int(stop), int(self._queued), len(picked), len(drops)]
+                rec += _flat([(r._sid, _fingerprint(r)) for r in picked], n)
+                rec += _flat([(r._sid, why) for r, why in drops], n)
+                rec += cancel
+                broadcast(torch.tensor(rec, dtype=torch.int64), ctl)
+        else:
+            rec = broadcast(torch.zeros(4 + 5 * n, dtype=torch.int64), ctl).tolist()
+            stop, self._queued = bool(rec[0]), bool(rec[1])
+            with self._wake:
+                picked = [self._take(sid, fp) for sid, fp in _pairs(rec[4:], rec[2])]
+                drops = [(self._take(sid), why) for sid, why in
+                         _pairs(rec[4 + 2 * n:], rec[3])]
+            cancel = rec[4 + 4 * n:]
+        for slot, c in zip(self._slots, cancel):
+            if c and not slot.cancel:
+                slot.cancel = True
+                slot.req._cancelled.set()
+        for req, why in drops:
+            if why == 1:
+                req._cancelled.set()
+            else:
+                req.error = TimeoutError(f"queued longer than expires_s={req.expires_s}s")
+            self._end_request(req)
+        return stop, picked
+
+    def _take(self, sid: int, fp: Optional[int] = None) -> ServeRequest:
+        """Remove request ``sid`` from the queue, waiting until this rank's
+        caller has submitted it (the lock held). ``fp``: its fingerprint on
+        the first rank, which it must match."""
+        deadline = time.monotonic() + FOLLOW_TIMEOUT_S
+        while True:
+            req = next((r for r in self._queue if r._sid == sid), None)
+            if req is not None:
+                break
+            left = deadline - time.monotonic()
+            if left <= 0 or self._stop.is_set():
+                raise RuntimeError(
+                    f"request #{sid} was scheduled on the mesh's first rank but never "
+                    "submitted here: every rank must submit the same requests in order")
+            self._wake.wait(timeout=min(left, 0.05))
+        if fp is not None and _fingerprint(req) != fp:
+            raise RuntimeError(f"request #{sid} differs from the mesh's first rank's: every "
+                               "rank must submit the same requests in order")
+        self._queue.remove(req)
+        return req
+
+    def _admit(self, picked: List[ServeRequest]) -> int:
+        """Move the planned admission group into free slots; one bucketed
+        prefill per group. Returns the number admitted."""
         if not picked:
             return 0
         with profiling.stage("serve/admit_build"):
@@ -640,14 +771,13 @@ class ServingEngine:
         temps = _upload(np.array(pad([r.temperature for r, _, _, _ in built]), np.float32), dev)
         lens = _upload(np.array(pad([n for _, _, n, _ in built]), np.int64), dev)
         seed_vals = _upload(np.array(pad([r.seed for r, _, _, _ in built]), np.int64), dev)
-        rows_t = _upload(np.array(pad(rows_real), np.int64), dev)
 
         def prefill(model):
-            pk, pv = tfm.make_kv_cache(model.config.talker, a, p_group, device=dev)
+            pk, pv = model._shard_kv(a, p_group)
             pkv = torch.zeros((a, p_group), dtype=torch.bool, device=dev)
             return _prefill(model.params, model.config, sj["ids_slotted"], sj["text_mask"],
                             sj["codes_slotted"], sj["code_mask"], sj["spk_ids"], sj["spk_mask"],
-                            sj["rope_pos"], sj["attn_mask"], pk, pv, pkv)
+                            sj["rope_pos"], sj["attn_mask"], pk, pv, pkv, tp=model.tp_axis)
 
         logits, pk, pv, pkv = prefill(self.model)
         # Frame 0 from the prefill logits with the per-request (seed, 0) key,
@@ -655,18 +785,26 @@ class ServingEngine:
         _suppress_eos(logits, self.cfg.audio_eos, min_f > 0)
         tok0 = _sample_token_seeded(logits, seed_vals, torch.zeros_like(seed_vals), temps,
                                     self.top_k)
-        # Speculative: columns are per-row and reset at admission, the prompt
-        # at [0, p_group). Otherwise it ends at the current global column.
-        ins_col = p_group if self.draft is not None else self._col
-        _insert_rows(self._cache_k, self._cache_v, self._key_valid, rows_t, pk, pv, pkv, ins_col)
-        if self.draft is not None:
-            # The draft prefills the same prompt arrays into its own ring; its
-            # logits are unused (frame 0 samples from the target).
-            _dl, dpk, dpv, dpkv = prefill(self.draft)
-            _insert_rows(self._d_cache_k, self._d_cache_v, self._d_key_valid, rows_t, dpk, dpv,
-                         dpkv, ins_col)
-            self._spec_cols.index_fill_(0, rows_t, p_group)
-        self._admit_state(rows_t, tok0, lens, min_f, temps, seed_vals)
+        # Every data rank prefilled the group; each scatters the rows it holds.
+        js, local = self._own(pad(rows_real))
+        if js:
+            pick = self._picker(js, a)
+            rows_t = _upload(np.array(local, np.int64), dev)
+            # Speculative: columns are per-row and reset at admission, the
+            # prompt at [0, p_group). Otherwise it ends at the current global
+            # column.
+            ins_col = p_group if self.draft is not None else self._col
+            _insert_rows(self._cache_k, self._cache_v, self._key_valid, rows_t, pick(pk, 1),
+                         pick(pv, 1), pick(pkv), ins_col)
+            if self.draft is not None:
+                # The draft prefills the same prompt arrays into its own ring;
+                # its logits are unused (frame 0 samples from the target).
+                _dl, dpk, dpv, dpkv = prefill(self.draft)
+                _insert_rows(self._d_cache_k, self._d_cache_v, self._d_key_valid, rows_t,
+                             pick(dpk, 1), pick(dpv, 1), pick(dpkv), ins_col)
+                self._spec_cols.index_fill_(0, rows_t, p_group)
+            self._admit_state(rows_t, pick(tok0), pick(lens), pick(min_f), pick(temps),
+                              pick(seed_vals))
         self.admissions += 1
 
         now = time.time()
@@ -679,8 +817,17 @@ class ServingEngine:
             slot.emitted = 0
             slot.done_seen = None  # EOS at frame 0 surfaces via the done carry
             slot.frames = 1
+            slot.cancel = False
             req.t_admit = now
         return a_real
+
+    def _picker(self, js: List[int], a: int):
+        """``pick(x, dim=0)``: the admission group's entries ``js`` of ``x``
+        along ``dim`` (all of them, as they are, when ``js`` is the group)."""
+        if js == list(range(a)):
+            return lambda x, dim=0: x
+        sel = _upload(np.array(js, np.int64), self.device)
+        return lambda x, dim=0: x.index_select(dim, sel)
 
     def _admit_state(self, rows, tok0, lens, min_f, temps, seed_vals) -> None:
         """Write the admitted rows into every per-row state tensor.
@@ -766,8 +913,8 @@ class ServingEngine:
 
     def _after_harvest(self, row, req, slot, emits, retire) -> None:
         """Queue a streaming row's new window and mark finished rows."""
-        finished = slot.done_seen is not None or slot.frames >= req.max_frames or req.cancelled
-        if req.stream and not req.cancelled:
+        finished = slot.done_seen is not None or slot.frames >= req.max_frames or slot.cancel
+        if req.stream and not slot.cancel:
             total = slot.done_seen if slot.done_seen is not None else slot.frames
             total = max(min(total, req.max_frames), 1)
             safe = total if finished else max(total - self.stream_context, 0)
@@ -785,6 +932,7 @@ class ServingEngine:
         the device code log; a window with ``stream_context`` frames of left
         context reproduces the full-utterance vocode of its emitted samples.
         """
+        log = self._codes_log()
         by_len: Dict[int, List[Tuple[int, int, int, int]]] = {}
         for row, lo, hi, emit_from in emits:
             by_len.setdefault(_round_up(hi - lo, self.chunk), []).append((row, lo, hi, emit_from))
@@ -793,7 +941,7 @@ class ServingEngine:
                 rows = _upload(np.array([g[0] for g in group], np.int64), self.device)
                 los = _upload(np.array([g[1] for g in group], np.int64), self.device)
                 ends = _upload(np.array([g[2] for g in group], np.int64), self.device)
-                wav = self._stream_vocode(rows, los, ends, w)
+                wav = self._stream_vocode(log, rows, los, ends, w)
                 pieces = []
                 for b, (row, lo, hi, emit_from) in enumerate(group):
                     emit_to = self._slots[row].emitted  # set before the dispatch
@@ -810,9 +958,9 @@ class ServingEngine:
         """Model hook: widen a streaming window's start frame. Default: as is."""
         return lo
 
-    def _stream_vocode(self, rows, los, ends, w: int):
-        """Model hook: vocode per-row sliding windows from the device log."""
-        return _vocode_windows(self.model.params, self.cfg, self._codes_buf, rows, los, ends, w)
+    def _stream_vocode(self, log, rows, los, ends, w: int):
+        """Model hook: vocode per-row sliding windows from the whole device log."""
+        return _vocode_windows(self.model.params, self.cfg, log, rows, los, ends, w)
 
     def _stream_piece(self, wav_row, lo: int, hi: int, emit_from: int, emit_to: int):
         """Model hook: one emitted piece of a window covering frames ``[lo, hi)``."""
@@ -827,16 +975,19 @@ class ServingEngine:
         them: the vocode and code gathers queued here run ahead of any
         re-admission's writes on the engine's stream.
         """
-        rows_t = _upload(np.array(rows, np.int64), self.device)
-        self._active_dev.index_fill_(0, rows_t, False)
-        self._done.index_fill_(0, rows_t, True)
+        _js, local = self._own(rows)
+        if local:
+            rows_t = _upload(np.array(local, np.int64), self.device)
+            self._active_dev.index_fill_(0, rows_t, False)
+            self._done.index_fill_(0, rows_t, True)
+        log = self._codes_log()
         by_len: Dict[int, List[Tuple[ServeRequest, int, int]]] = {}
         for row in rows:
             slot = self._slots[row]
             req = slot.req
             self._active[row] = False
             slot.req = None
-            if req.cancelled:
+            if slot.cancel:
                 slot.pieces = []
                 self._end_request(req)
                 continue
@@ -848,7 +999,7 @@ class ServingEngine:
                 # The streamed pieces ARE the waveform (the final flush went
                 # out in _emit_stream); the codes are snapshotted, since the
                 # row's log is rewritten by the next admission.
-                codes = self._codes_buf[row, :end][None].clone()
+                codes = log[row, :end][None].clone()
                 req._wav = (torch.cat(slot.pieces) if slot.pieces else
                             torch.zeros(0, dtype=torch.float32, device=self.device))
                 ev = _record(self.device)
@@ -866,7 +1017,7 @@ class ServingEngine:
             for t, group in by_len.items():
                 rows_arr = _upload(np.array([g[1] for g in group], np.int64), self.device)
                 ends_arr = _upload(np.array([g[2] for g in group], np.int64), self.device)
-                wav, codes_masked = self._retire_vocode(rows_arr, ends_arr, t)
+                wav, codes_masked = self._retire_vocode(log, rows_arr, ends_arr, t)
                 wavs = [self._finish_wav(wav[b], end) for b, (_r, _row, end) in enumerate(group)]
                 ev = _record(self.device)
                 for b, (req, _row, end) in enumerate(group):
@@ -876,11 +1027,11 @@ class ServingEngine:
                     self.requests_done += 1
                     req._resolve()
 
-    def _retire_vocode(self, rows_arr, ends_arr, t: int):
-        """Model hook: vocode retiring rows from the device log; returns
+    def _retire_vocode(self, log, rows_arr, ends_arr, t: int):
+        """Model hook: vocode retiring rows from the whole device log; returns
         (waveforms (G, t*hop), the masked codes (G, t, nq) behind the lazy
         ``ServeRequest.codes``)."""
-        return _vocode_rows(self.model.params, self.cfg, self._codes_buf, rows_arr, ends_arr, t)
+        return _vocode_rows(self.model.params, self.cfg, log, rows_arr, ends_arr, t)
 
     def _finish_wav(self, wav_row, end: int):
         """Model hook: the final per-request waveform from its vocoded row."""
@@ -912,18 +1063,25 @@ class ServingEngine:
             self.model.params, self._cache_k, self._cache_v, self._key_valid, self._codes_buf,
             self.cfg, self._col, self._rope_next, self._last_codes, self._done,
             self._active_dev, self._seeds, self._temp, self._frames_done, self._min_frames,
-            self.chunk, self.top_k,
+            self.chunk, self.top_k, self._tp,
         )
         self._col = (self._col + self.chunk) % self.ring
-        return _Lagged(done_chunk)
+        return _Lagged(all_gather(done_chunk, 0, self._data))
 
     def step(self) -> bool:
         """One scheduler iteration: admit -> dispatch a chunk -> harvest the
         previous chunk (its fetch overlaps the new chunk's execution).
         Single-threaded driver only. Returns True if any work was done."""
+        return self._step(False)[0]
+
+    def _step(self, stop: bool) -> Tuple[bool, bool]:
+        """:meth:`step`, asking to stop; returns (work done, stop agreed)."""
         with self._on_stream():
             with profiling.stage("serve/admit"):
-                self._admit()
+                stop, picked = self._plan(stop)
+                if stop:
+                    return False, True
+                self._admit(picked)
             if self._active.any():
                 owners = [self._slots[i].req for i in range(self.n_slots)]
                 with profiling.stage("serve/dispatch"):
@@ -934,32 +1092,34 @@ class ServingEngine:
                 if prev is not None:
                     self._harvest_one(prev)
                 self._t_last = time.time()
-                return True
+                return True, False
             if self._pending is not None:
                 self._flush()
                 self._t_last = time.time()
-                return True
-            return False
+                return True, False
+            return False, False
 
     def run_until_idle(self) -> None:
         """Drive the loop until queue, slots and pending harvest drain."""
         while True:
-            with self._lock:
-                queued = bool(self._queue)
-            if not (queued or self._active.any() or self._pending is not None):
-                return
             self.step()
+            if not (self._queued or self._active.any() or self._pending is not None):
+                return
 
     def start(self) -> None:
-        """Serve on a background thread until :meth:`stop`."""
+        """Serve on a background thread until :meth:`stop` (on a mesh, until
+        the first rank's :meth:`stop`; every rank starts one)."""
         if self._thread is not None:
             return
         self._stop.clear()
 
         def loop():
             try:
-                while not self._stop.is_set():
-                    if not self.step():
+                while True:
+                    worked, stop = self._step(self._stop.is_set())
+                    if stop:
+                        break
+                    if not worked:
                         with self._wake:
                             if not self._queue and not self._stop.is_set():
                                 self._wake.wait(timeout=0.05)

@@ -22,8 +22,9 @@ the model hooks for the CFG-pair decode:
 * **Position-indexed watermark.** Retired waveforms and streamed pieces are
   marked on the device at their absolute sample offsets.
 
-A model with a device mesh raises ``NotImplementedError`` (ROADMAP queue 1
-item 12).
+* **Mesh serving**, as the base engine's: request slots split over
+  ``data`` (this rank's cond and uncond rows together, so the CFG mix stays
+  local) and KV heads over ``model`` under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from .models.chatterbox.model import (
 from .models.qwen.model import _gumbel_noise, _round_up, _sample_with_noise
 from .models.qwen.speculative import _suppress_eos
 from .ops.watermark import _ENV_WINDOW, apply_watermark
+from .parallel.collectives import all_gather
 from .serving import ServeRequest, ServingEngine, _insert_rows, _Lagged, _upload
 from .utils import profiling
 
@@ -57,7 +59,7 @@ from .utils import profiling
 
 def _cb_serve_decode_chunk(params, cache_k, cache_v, key_valid, toks_buf, cfg, col0: int,
                            rope_next, last_tok, done, active, seeds, temperature, cfg_w,
-                           frames_done, min_frames, steps: int, top_k: int):
+                           frames_done, min_frames, steps: int, top_k: int, tp=None):
     """``steps`` CFG decode steps over the slot batch with ring writes at
     global column ``col0 + t`` (mod S); caches, ``key_valid`` and
     ``toks_buf`` are written in place.
@@ -68,7 +70,8 @@ def _cb_serve_decode_chunk(params, cache_k, cache_v, key_valid, toks_buf, cfg, c
     feeds both rows of its request; the EOS column is suppressed on both
     rows before the CFG mix. The chunk's tokens append to ``toks_buf`` at
     each request's frame positions (the EOS frame and after it zeroed,
-    positions past the log's end dropped).
+    positions past the log's end dropped). ``tp``: the mesh axis the
+    weights are sharded over.
 
     Returns ``(done_chunk (B, steps), last_tok, done, rope_next,
     frames_done)``.
@@ -88,7 +91,7 @@ def _cb_serve_decode_chunk(params, cache_k, cache_v, key_valid, toks_buf, cfg, c
         h, _ = tfm.stack_forward(
             params["talker"], cfg.talker, embed[torch.cat([last_tok, last_tok])][:, None, :],
             (rope_next + t)[:, None], kv_caches=(cache_k, cache_v), cache_len=slot,
-            attn_mask=attn_mask, key_valid=key_valid, slot_causal=False,
+            attn_mask=attn_mask, key_valid=key_valid, slot_causal=False, tp=tp,
         )
         key_valid[:, slot] = act2
         logits = h[:, -1].float() @ lm_head
@@ -138,15 +141,13 @@ class ChatterboxServingEngine(ServingEngine):
 
     ``n_slots`` is the number of concurrent REQUESTS; the transformer batch
     is ``2 * n_slots`` rows (CFG pairs). Submit from any thread; drive with
-    :meth:`step` / :meth:`run_until_idle` or :meth:`start`.
+    :meth:`step` / :meth:`run_until_idle` or :meth:`start`. A model on a
+    mesh serves over it, ``n_slots`` a multiple of the ``data`` axis.
     """
 
     def __init__(self, model: ChatterboxModel, n_slots: int = 8, max_prompt: int = 128,
                  max_frames: int = 768, top_k: Optional[int] = None, seed: int = 0,
                  stream_context: int = 32, max_queue: Optional[int] = None, chunk: int = 64):
-        if getattr(model, "mesh", None) is not None:
-            raise NotImplementedError(
-                "serving a model over a device mesh is not ported yet: ROADMAP queue 1 item 12")
         self.model = model
         self.cfg = model.cfg
         self.device = torch.device(model.device)
@@ -173,11 +174,11 @@ class ChatterboxServingEngine(ServingEngine):
         self._start(seed, max_queue)
 
     def _alloc_state(self) -> None:
-        """The 2B-row ring and the (B,) request state, on the device."""
-        b, dev = self.n_slots, self.device
+        """The 2B-row ring and the (B,) request state, on the device (this
+        rank's request slots: its cond rows, then its uncond rows)."""
+        b, dev = self._n_local, self.device
         i64 = dict(dtype=torch.int64, device=dev)
-        self._cache_k, self._cache_v = tfm.make_kv_cache(self.cfg.talker, 2 * b, self.ring,
-                                                         device=dev)
+        self._cache_k, self._cache_v = self.model._shard_kv(2 * b, self.ring)
         self._key_valid = torch.zeros((2 * b, self.ring), dtype=torch.bool, device=dev)
         self._rope_next = torch.zeros((2 * b,), **i64)
         self._last_codes = torch.zeros((b,), **i64)
@@ -289,38 +290,47 @@ class ChatterboxServingEngine(ServingEngine):
         temps = _upload(np.array([r.temperature for r in reqs], np.float32), dev)
         ws = _upload(np.array([r.cfg_weight for r in reqs], np.float32), dev)
         seed_vals = _upload(np.array([r.seed for r in reqs], np.int64), dev)
-        rows_t = _upload(np.array(rows_real + [rows_real[-1]] * (a - a_real), np.int64), dev)
-        rows2 = torch.cat([rows_t, rows_t + self.n_slots])
 
-        pk, pv = tfm.make_kv_cache(self.cfg.talker, 2 * a, p, device=dev)
+        pk, pv = self.model._shard_kv(2 * a, p)
         pkv = torch.zeros((2 * a, p), dtype=torch.bool, device=dev)
         logits, pk, pv, pkv = _prefill(
             self.model.params, self.cfg, _upload(ids_slotted, dev), _upload(text_mask, dev),
             _upload(bos_mask, dev), _upload(spk_mask, dev), _upload(spk_vecs, dev),
-            _upload(rope_pos, dev), _upload(attn_mask, dev), pk, pv, pkv,
+            _upload(rope_pos, dev), _upload(attn_mask, dev), pk, pv, pkv, tp=self._tp,
         )
         # Frame 0 from the prefill logits with the per-request (seed, 0) key;
         # EOS masked on both rows under a floor, as the one-shot start.
         sup = min_f > 0
         _suppress_eos(logits, self.cfg.speech_eos, torch.cat([sup, sup]))
         tok0 = _cfg_sample(logits, seed_vals, torch.zeros_like(seed_vals), temps, self.top_k, ws)
-        _insert_rows(self._cache_k, self._cache_v, self._key_valid, rows2, pk, pv, pkv,
-                     self._col)
 
-        # Every per-request state tensor; frame 0 of the log is the
-        # prefill-sampled token, the rest of the row zeroed.
-        row0 = torch.zeros((a, self._codes_buf.shape[1]), dtype=torch.int64, device=dev)
-        row0[:, 0] = tok0
-        self._last_codes[rows_t] = tok0
-        self._done[rows_t] = tok0 == self.cfg.speech_eos
-        self._active_dev.index_fill_(0, rows_t, True)
-        self._rope_next[rows2] = _upload(lens2, dev)
-        self._frames_done.index_fill_(0, rows_t, 1)
-        self._min_frames[rows_t] = min_f
-        self._temp[rows_t] = temps
-        self._cfg_w[rows_t] = ws
-        self._codes_buf[rows_t] = row0
-        self._seeds[rows_t] = seed_vals
+        # Every data rank prefilled the group; each keeps the requests it
+        # holds, their cond rows and their uncond rows (the group's j, a + j).
+        js, local = self._own(rows_real + [rows_real[-1]] * (a - a_real))
+        if js:
+            pick = self._picker(js, a)
+            pick2 = self._picker(js + [a + j for j in js], 2 * a)
+            rows_t = _upload(np.array(local, np.int64), dev)
+            rows2 = torch.cat([rows_t, rows_t + self._n_local])
+            _insert_rows(self._cache_k, self._cache_v, self._key_valid, rows2, pick2(pk, 1),
+                         pick2(pv, 1), pick2(pkv), self._col)
+
+            # Every per-request state tensor; frame 0 of the log is the
+            # prefill-sampled token, the rest of the row zeroed.
+            tok0 = pick(tok0)
+            row0 = torch.zeros((len(js), self._codes_buf.shape[1]), dtype=torch.int64,
+                               device=dev)
+            row0[:, 0] = tok0
+            self._last_codes[rows_t] = tok0
+            self._done[rows_t] = tok0 == self.cfg.speech_eos
+            self._active_dev.index_fill_(0, rows_t, True)
+            self._rope_next[rows2] = pick2(_upload(lens2, dev))
+            self._frames_done.index_fill_(0, rows_t, 1)
+            self._min_frames[rows_t] = pick(min_f)
+            self._temp[rows_t] = pick(temps)
+            self._cfg_w[rows_t] = pick(ws)
+            self._codes_buf[rows_t] = row0
+            self._seeds[rows_t] = pick(seed_vals)
         self.admissions += 1
 
         now = time.time()
@@ -346,10 +356,10 @@ class ChatterboxServingEngine(ServingEngine):
                 self.model.params, self._cache_k, self._cache_v, self._key_valid,
                 self._codes_buf, self.cfg, self._col, self._rope_next, self._last_codes,
                 self._done, self._active_dev, self._seeds, self._temp, self._cfg_w,
-                self._frames_done, self._min_frames, self.chunk, self.top_k,
+                self._frames_done, self._min_frames, self.chunk, self.top_k, self._tp,
             )
         self._col = (self._col + self.chunk) % self.ring
-        return _Lagged(done_chunk)
+        return _Lagged(all_gather(done_chunk, 0, self._data))
 
     def _widen_lo(self, lo: int, hi: int) -> int:
         """Streamed windows span at least one watermark-envelope window of
@@ -357,18 +367,16 @@ class ChatterboxServingEngine(ServingEngine):
         need = -(-_ENV_WINDOW // self.cfg.codec.hop) + 1
         return min(lo, max(hi - need, 0))
 
-    def _stream_vocode(self, rows, los, ends, w: int):
-        return _cb_vocode_windows(self.model.params, self.cfg, self._codes_buf, rows, los, ends,
-                                  w)
+    def _stream_vocode(self, log, rows, los, ends, w: int):
+        return _cb_vocode_windows(self.model.params, self.cfg, log, rows, los, ends, w)
 
     def _stream_piece(self, wav_row, lo: int, hi: int, emit_from: int, emit_to: int):
         hop = self.cfg.codec.hop
         marked = apply_watermark(wav_row[: (hi - lo) * hop], offset=lo * hop)
         return marked[(emit_from - lo) * hop: (emit_to - lo) * hop]
 
-    def _retire_vocode(self, rows_arr, ends_arr, t: int):
-        return _cb_vocode_rows(self.model.params, self.cfg, self._codes_buf, rows_arr, ends_arr,
-                               t)
+    def _retire_vocode(self, log, rows_arr, ends_arr, t: int):
+        return _cb_vocode_rows(self.model.params, self.cfg, log, rows_arr, ends_arr, t)
 
     def _finish_wav(self, wav_row, end: int):
         """The watermarked waveform, as ``ChatterboxModel.generate`` returns it."""

@@ -23,7 +23,9 @@ import torch
 from rho_tts_tpu.models.chatterbox import model as jcb
 from rho_tts_tpu_torch import from_jax
 from rho_tts_tpu_torch.models.chatterbox import model as tcb
+from rho_tts_tpu_torch.parallel import inference, mesh
 from rho_tts_tpu_torch.utils import prng
+from test_torch_port_parallel import world_of_one  # noqa: F401 — fixture
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -357,16 +359,20 @@ def test_t3_checkpoint_converts_like_jax(tmp_path, fmt):
                                                          device="cpu")["text_embed"])
 
 
-def test_entry_points_default_to_cuda_and_mesh_raises(pair):
+def test_entry_points_default_to_cuda_and_mesh_raises(pair, world_of_one):
+    """Without ``device=`` the model goes to the card. A model on a mesh no
+    longer raises: over meshes of one (a gloo world of one) its data- and
+    tensor-parallel decodes draw the unmeshed tokens and waveform; worlds of
+    2 and 4 ranks are ``test_torch_port_parallel_serving.py``."""
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises((RuntimeError, AssertionError)):
             tcb.ChatterboxModel(tcb.PRESETS["tiny"])
         with pytest.raises((RuntimeError, AssertionError)):
             tcb.ChatterboxModel.from_pretrained(implementation="tiny")
     _jm, tm = pair
-    tm.mesh = object()
-    try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tm.generate(TEXT, max_new_tokens=8)
-    finally:
-        tm.mesh = None
+    ref = tm.generate(TEXT, max_new_tokens=64, seed=5)
+    for mode in ("data", "tensor"):
+        m = tcb.ChatterboxModel(tm.cfg, params=tm.params, device="cpu")
+        getattr(inference, f"enable_{mode}_parallel")(m, mesh.create_mesh(1, model_parallel=1))
+        assert m.mesh is not None
+        assert torch.equal(m.generate(TEXT, max_new_tokens=64, seed=5), ref)

@@ -96,11 +96,19 @@ def assert_same(outs):
         np.testing.assert_allclose(_np(o.audio), _np(r.audio), atol=WAV_TOL, rtol=0)
 
 
-def test_invalid_implementation_and_parallelism():
+def test_invalid_implementation_and_parallelism(caplog):
+    """``parallelism`` builds the provider: without a process group the
+    world is one rank, which warns and leaves the model unmeshed, as the
+    JAX provider does on one device (worlds of 2 ranks generate in
+    ``test_torch_port_parallel_providers.py``); an unknown mode raises."""
     with pytest.raises(ValueError, match="Invalid implementation"):
         TChatterboxTTS(device="cpu", implementation="turbo")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        TChatterboxTTS(device="cpu", implementation="tiny", parallelism="data")
+    with pytest.raises(ValueError, match="Unknown parallelism"):
+        TChatterboxTTS(device="cpu", implementation="tiny", parallelism="pipeline")
+    with caplog.at_level("WARNING"):
+        tts = TChatterboxTTS(device="cpu", implementation="tiny", parallelism="data")
+    assert tts.parallelism == "data" and tts.model.mesh is None
+    assert "only 1 device" in caplog.text
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises((RuntimeError, AssertionError)):
             TChatterboxTTS(implementation="tiny")

@@ -176,19 +176,25 @@ def test_factory_returns_the_port_provider():
     (dict(draft_model_path="tiny"), None),
     (dict(parallelism="data"), "item 12"),
 ])
-def test_unported_options_raise(kw, item):
-    """``parallelism`` raises, naming its ROADMAP item; ``serving=True`` and
-    ``draft_model_path`` build the provider (served and speculative
-    generation are held against the JAX provider in
+def test_unported_options_raise(kw, item, caplog):
+    """Every option builds the provider now: ``serving=True`` and
+    ``draft_model_path`` (held against the JAX provider in
     ``test_torch_port_served_pipeline.py``; ``lora_path`` in
-    ``test_torch_port_lora.py``)."""
+    ``test_torch_port_lora.py``) and ``parallelism`` (ROADMAP ``item``
+    12): without a process group the world is one rank, so the model loads
+    unmeshed with a warning (worlds of 2 ranks generate in
+    ``test_torch_port_parallel_providers.py``); an unknown mode raises."""
+    tts = TQwenTTS(device="cpu", model_path="tiny-CustomVoice", speaker="Aria", **kw)
+    assert tts.supports_serving_generation == bool(kw.get("serving"))
+    assert tts.draft_model_path == kw.get("draft_model_path")
     if item is None:
-        tts = TQwenTTS(device="cpu", model_path="tiny-CustomVoice", speaker="Aria", **kw)
-        assert tts.supports_serving_generation == bool(kw.get("serving"))
-        assert tts.draft_model_path == kw.get("draft_model_path")
         return
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        TQwenTTS(device="cpu", model_path="tiny-CustomVoice", speaker="Aria", **kw)
+    with caplog.at_level("WARNING"):
+        model = tts._load_model()
+    assert tts.parallelism == "data" and model.mesh is None
+    assert "only 1 device" in caplog.text
+    with pytest.raises(ValueError, match="Unknown parallelism"):
+        TQwenTTS(device="cpu", model_path="tiny-CustomVoice", parallelism="pipeline")
 
 
 def test_chatterbox_is_not_ported():

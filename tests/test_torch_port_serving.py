@@ -20,7 +20,10 @@ import pytest
 import torch
 
 from rho_tts_tpu.serving import ServingEngine as JEngine
+from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
+from rho_tts_tpu_torch.parallel import inference, mesh
 from rho_tts_tpu_torch.serving import ServingEngine as TEngine
+from test_torch_port_parallel import world_of_one  # noqa: F401 — fixture
 from test_torch_port_speculative import fp32_tree, model_pair
 
 torch.set_num_threads(1)  # several test workers share the cores
@@ -345,16 +348,29 @@ class TestSchedulerBehavior:
 
         assert both(pair, run) == (True, True)
 
-    def test_model_with_a_mesh_raises(self, pair):
-        """The JAX engine shards slot rows over a mesh; the port's does not
-        serve one yet (ROADMAP queue 1 item 12)."""
+    def test_model_with_a_mesh_raises(self, pair, world_of_one):
+        """A model on a mesh serves over it (no raise any more): over meshes
+        of one (a gloo world of one) the data- and tensor-parallel engines
+        serve the unmeshed engine's codes and waveforms; speculative serving
+        over a mesh still raises, as the JAX engine's does. Worlds of 2 and
+        4 ranks are ``test_torch_port_parallel_serving.py``."""
         tm = pair[1]
-        tm.mesh = object()
-        try:
-            with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-                TEngine(tm, n_slots=2)
-        finally:
-            del tm.mesh
+
+        def serve(m):
+            eng = TEngine(m, n_slots=2, max_prompt=64, max_frames=128, top_k=1)
+            reqs = [eng.submit(t, min_frames=8, max_frames=96, stream=(i == 1))
+                    for i, t in enumerate(TEXTS[:3])]
+            eng.run_until_idle()
+            return reqs
+
+        ref = serve(tm)
+        for mode in ("data", "tensor"):
+            m = TModel(tm.config, params=tm.params, device="cpu")
+            getattr(inference, f"enable_{mode}_parallel")(m, mesh.create_mesh(1, model_parallel=1))
+            assert_same_requests(ref, serve(m))
+            with pytest.raises(NotImplementedError, match="device mesh"):
+                TEngine(m, n_slots=2, draft_model=TModel(tm.config, params=tm.params,
+                                                         device="cpu"))
 
 
 class TestQoS:

@@ -18,7 +18,9 @@ from rho_tts_tpu.audio_io import save_wav
 from rho_tts_tpu.serving_cb import ChatterboxServingEngine as JEngine
 from rho_tts_tpu_torch.models.chatterbox import model as tcb
 from rho_tts_tpu_torch.ops.watermark import apply_watermark
+from rho_tts_tpu_torch.parallel import inference, mesh
 from rho_tts_tpu_torch.serving_cb import ChatterboxServingEngine as TEngine
+from test_torch_port_parallel import world_of_one  # noqa: F401 — fixture
 from test_torch_port_chatterbox import (  # noqa: F401 — fixtures
     cb_fp32_tree,
     cb_pair,
@@ -350,11 +352,22 @@ class TestSchedulerBehavior:
         assert ost["frames_decoded"] == rst["frames_decoded"]
 
 
-def test_mesh_model_raises(pair):
+def test_mesh_model_raises(pair, world_of_one):
+    """A model on a mesh serves over it (no raise any more): over meshes of
+    one (a gloo world of one) the data- and tensor-parallel CFG-pair
+    engines serve the unmeshed engine's tokens and waveforms. Worlds of 2
+    and 4 ranks are ``test_torch_port_parallel_serving.py``."""
     _jm, tm = pair
-    tm.mesh = object()
-    try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            TEngine(tm, n_slots=2)
-    finally:
-        tm.mesh = None
+
+    def serve(m):
+        eng = TEngine(m, n_slots=2, max_prompt=64, max_frames=128, chunk=32)
+        reqs = [eng.submit(t, min_frames=8, max_frames=96, seed=i, stream=(i == 1))
+                for i, t in enumerate(["one", "a second request", "three"])]
+        eng.run_until_idle()
+        return reqs
+
+    ref = serve(tm)
+    for mode in ("data", "tensor"):
+        m = tcb.ChatterboxModel(tm.cfg, params=tm.params, device="cpu")
+        getattr(inference, f"enable_{mode}_parallel")(m, mesh.create_mesh(1, model_parallel=1))
+        assert_same_requests(ref, serve(m))

@@ -233,18 +233,27 @@ def test_scatter_rows_drops_out_of_range_columns():
 
 
 def test_unported_modes_raise():
+    """``kv_window`` raises. ``sp_mesh`` is ported (spawned worlds in
+    ``test_torch_port_parallel_ranks.py``); a forward other than a fused
+    prefill into an empty cache ignores it, as JAX's does, so a decode step
+    with it computes what one without it does."""
     tcfg = ttfm.TransformerConfig(**CFG, dtype=torch.float32)
     tparams = _params(False)[3]
     x = torch.zeros((2, 1, CFG["hidden"]))
     pos = torch.zeros((2, 1), dtype=torch.int64)
-    caches = ttfm.make_kv_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
     kv = torch.ones((2, 8), dtype=torch.bool)
-    for kwargs, match in (
-        (dict(kv_caches=caches, cache_len=1, key_valid=kv, kv_window=4), "whole cache"),
-        (dict(kv_caches=caches, cache_len=1, key_valid=kv, sp_mesh=object()), "queue 1 item 12"),
-    ):
-        with pytest.raises(NotImplementedError, match=match):
-            ttfm.stack_forward(tparams, tcfg, x, pos, **kwargs)
+
+    def caches():
+        return ttfm.make_kv_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
+
+    with pytest.raises(NotImplementedError, match="whole cache"):
+        ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=caches(), cache_len=1,
+                           key_valid=kv, kv_window=4)
+    ref, _ = ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=caches(), cache_len=1,
+                                key_valid=kv)
+    out, _ = ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=caches(), cache_len=1,
+                                key_valid=kv, sp_mesh=object())
+    assert torch.equal(out, ref)
 
 
 def _cache_less_inputs(masked):
