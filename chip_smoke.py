@@ -80,7 +80,17 @@ Phases, each fatal on failure:
     ragged traffic against the unmeshed engine; Chatterbox "standard" over it; and every kernel at the
     per-rank shapes of TP and SP at mp = 2 and 4 for the 1.7B and Chatterbox,
     each part logged as ``phase 12 <part> (<card>): {...}``. Each kernel's
-    entry gains ``launches_parallel`` and ``per_rank_cases``.
+    entry gains ``launches_parallel`` and ``per_rank_cases``;
+13. sharded training (see :func:`run_sharded_training_path`): phase 11's
+    1.7B full fine-tune cell in an NCCL world of one: ``train_step`` on DP,
+    TP and PP meshes of one bit-equal to unmeshed with no collective and no
+    kernel launched, PP in 4 microbatches within ``PP_TOL`` (first-step
+    gradients, losses, params), LoRA on DP, TP and PP meshes of one
+    bit-equal, ``save_checkpoint`` / ``save_train_state``
+    from the TP mesh of one reloaded unmeshed bit for bit, and each
+    variant's step timed in a seeded shuffled order, each part logged as
+    ``phase 13 <part> (<card>): {...}``. Each kernel's entry gains
+    ``launches_sharded_training`` (0: training runs no kernel).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -3222,6 +3232,311 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: sharded training on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_WALLS = 6  # timed steps a variant, as chip_mesh_walls.py
+PP_MICROBATCHES = 4
+# b. PP of one stage in 4 microbatches against the unmicrobatched step: the
+# GEMMs run at other shapes, so bf16 rounds apart. The first-step gradients:
+# each leaf within 2 ** -4 of its largest unmicrobatched gradient (the dry
+# run's bound, ``multihost_dryrun.PP_GRAD_TOL``); a backward that lost a
+# microbatch's or a stage's gradient, or counted it twice, is off by 1/4 to
+# 1. The loss: 1e-3 relative (on an H100: 6.3e-6). The params after 2 AdamW
+# steps at lr 1e-4, a step at most: 2 lr where a near-zero gradient's sign
+# turns with the order of the sums (AdamW's update is ~lr * sign(g) there),
+# plus one bf16 rounding of the value (2 ** -7 of it); so 2 ** -6 of the
+# value plus 5e-4, JAX's pipeline-test bound (on an H100: 4.1e-4 beyond
+# 2 ** -7 of the value). That bound shows the steps ran; the gradients'
+# bound is the one that sees the schedule's backward.
+PP_TOL = {"grad_of_leaf_max": 2.0 ** -4, "loss_rel": 1e-3, "param_rel": 2.0 ** -6,
+          "param_atol": 5e-4}
+
+
+def run_sharded_training_path(qmodel, kmods, build_dir: str, smi: str, device: str = "cuda",
+                              preset: str = TRAIN_PRESET, shape=TRAIN_SHAPE,
+                              init_method: str = None) -> dict:
+    """Phase 13: sharded training on one card, in an NCCL world of one.
+
+    Phase 11's full fine-tune cell (the 1.7B dense bf16, batch 4 x (64 text
+    tokens + 256 frames x 4 codebooks), ``make_optimizer()``'s AdamW at lr
+    1e-4, seed 789), each variant from the same seeded init, one at a time,
+    freed before the next; the reference params wait on the host.
+
+    a. 2 ``train_step``s unmeshed (twice: the steps are deterministic), on a
+       DP mesh of one, a TP mesh of one (``train.shard_train_params``) and a
+       PP mesh of one (``pipeline_train_step``, one microbatch): losses and
+       every param bit-equal to the unmeshed run's, no collective and no
+       kernel launched;
+    b. PP of one stage in ``PP_MICROBATCHES`` microbatches: the first-step
+       gradients, the losses and the params within ``PP_TOL`` of the
+       unmeshed run;
+    c. 2 ``lora_train_step``s (rank 8 on ``wqkv`` / ``wo``, the adapters
+       made from this rank's shards) on DP, TP and PP meshes of one: losses
+       and adapters bit-equal to unmeshed, the base frozen;
+    d. ``save_checkpoint`` of a ``QwenTTSModel`` over the TP mesh of one and
+       ``save_train_state(mesh=...)`` of the TP state, reloaded unmeshed: bit
+       for bit (params and AdamW moments); the files, under
+       ``build_dir/phase13``, are deleted after;
+    e. walls: one train state stepped by every variant (on meshes of one
+       their shards are the same tensors), ``SHARDED_WALLS`` steps each in a
+       seeded shuffled order; medians, quartiles, the peak.
+    """
+    import shutil
+
+    import numpy as np
+
+    from rho_tts_tpu_torch.models import checkpoint as ckpt
+    from rho_tts_tpu_torch.models.qwen import PRESETS, QwenTTSModel
+    from rho_tts_tpu_torch.models.qwen import lora, train
+    from rho_tts_tpu_torch.models.qwen.model import init_params
+    from rho_tts_tpu_torch.parallel import collectives, mesh, pipeline
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _free(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"card": smi}
+    if init_method is None:
+        init_method = f"127.0.0.1:{mesh.free_port()}"
+    mesh.initialize_distributed(init_method, 1, 0, device=device, local_rank=0)
+    meshes = {"dp": mesh.create_mesh(1, model_parallel=1),
+              "tp": mesh.create_mesh(1, model_parallel=1),
+              "pp": pipeline.create_pipeline_mesh(1, n_stages=1)}
+    cfg = PRESETS[preset]
+    batch = _train_batch(cfg, shape, device)
+    optimizer = train.make_optimizer()
+    steps = 2
+
+    def run(name, m=None, n_microbatches=None):
+        """``steps`` train steps of one variant from the seeded init: the
+        losses, the params on the host, the launches."""
+        mesh_ = meshes.get(name.split("_")[0]) if m is None else m
+        params = init_params(cfg, TRAIN_SEED, device)
+        if mesh_ is not None:
+            params = train.shard_train_params(mesh_, params, cfg)
+        state = optimizer.init(params)
+        _zero(kmods)
+        collectives.launches = 0
+        losses = []
+        for _ in range(steps):
+            if n_microbatches is None:
+                params, state, loss = train.train_step(params, state, batch, cfg, optimizer,
+                                                       mesh=mesh_)
+            else:
+                params, state, loss = pipeline.pipeline_train_step(
+                    params, state, batch, cfg, optimizer, mesh_, n_microbatches)
+            losses.append(loss)
+        losses = [float(x) for x in losses]
+        res = {"losses": losses, "launches": _launches(kmods),
+               "collective_launches": collectives.launches}
+        _no_kernels(f"phase 13 {name}", res["launches"])
+        if res["collective_launches"]:
+            raise AssertionError(f"phase 13 {name}: {res['collective_launches']} collectives")
+        host = {k: v.cpu() for k, v in ckpt.flatten(params).items()}
+        del params, state
+        _free(device)
+        return res, host
+
+    def same(a, b):
+        return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    # -- a. meshes of one, bit for bit ---------------------------------------------
+    a = {"preset": preset, "batch": shape, "steps": steps, "lr": optimizer.learning_rate}
+    a["unmeshed"], ref = run("unmeshed")
+    a["unmeshed_repeat"], again = run("unmeshed")
+    if a["unmeshed_repeat"]["losses"] != a["unmeshed"]["losses"] or not same(again, ref):
+        raise AssertionError("phase 13 a: two unmeshed runs differ (nondeterministic steps)")
+    del again
+    for name, mb in (("dp", None), ("tp", None), ("pp", 1)):
+        a[name], got = run(name, n_microbatches=mb)
+        if a[name]["losses"] != a["unmeshed"]["losses"] or not same(got, ref):
+            raise AssertionError(f"phase 13 a {name}: losses {a[name]['losses']} or params "
+                                 "differ from the unmeshed run's")
+        del got
+    a["bit_equal"] = True
+    out["a_meshes_of_one"] = a
+    log(f"phase 13 a_meshes_of_one ({smi}): {json.dumps(a)}")
+
+    # -- b. PP, one stage, 4 microbatches ------------------------------------------
+    def first_grads(mesh_=None, n_microbatches=None):
+        """Every leaf's first-step gradient from the seeded init (flat)."""
+        params = init_params(cfg, TRAIN_SEED, device)
+        if mesh_ is not None:
+            params = train.shard_train_params(mesh_, params, cfg)
+        _, grads = train.loss_and_grads(params, cfg, batch, mesh=mesh_,
+                                        n_microbatches=n_microbatches)
+        names = list(ckpt.flatten(params))
+        del params
+        return dict(zip(names, grads))
+
+    b = {"n_microbatches": PP_MICROBATCHES, "tol": PP_TOL}
+    ref_grads = {k: v.cpu() for k, v in first_grads().items()}
+    _free(device)
+    worst, worst_leaf = 0.0, None
+    for k, g in first_grads(meshes["pp"], PP_MICROBATCHES).items():
+        r = ref_grads[k].to(device).float()
+        top = float(r.abs().max()) if r.numel() else 0.0
+        err = float((g.float() - r).abs().max()) if r.numel() else 0.0
+        err = err / top if top > 0 else err
+        if err >= worst:
+            worst, worst_leaf = err, k
+    b.update(grad_error_of_leaf_max=worst, grad_worst_leaf=worst_leaf)
+    del ref_grads, g, r
+    _free(device)
+    if not worst <= PP_TOL["grad_of_leaf_max"]:
+        raise AssertionError(f"phase 13 b: first-step gradients {worst} of the leaf maximum "
+                             f"apart at {worst_leaf}")
+    t0 = time.perf_counter()
+    b["pp"], got = run(f"pp_m{PP_MICROBATCHES}", meshes["pp"], PP_MICROBATCHES)
+    b["wall_s"] = time.perf_counter() - t0
+    b["loss_rel_err"] = max(_rel(x, y) for x, y in zip(b["pp"]["losses"],
+                                                       a["unmeshed"]["losses"]))
+    excess, n_diff, n_all = 0.0, 0, 0
+    for k, v in ref.items():
+        d = (got[k].float() - v.float()).abs()
+        excess = max(excess, float((d - PP_TOL["param_rel"] * v.float().abs()).max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+    b.update(param_excess=excess, params_differing=n_diff / n_all)
+    if not b["loss_rel_err"] <= PP_TOL["loss_rel"] or not excess <= PP_TOL["param_atol"]:
+        raise AssertionError(f"phase 13 b: {b}")
+    del got, ref
+    out["b_pp_microbatched"] = b
+    log(f"phase 13 b_pp_microbatched ({smi}): {json.dumps(b)}")
+
+    # -- c. LoRA on meshes of one ----------------------------------------------------
+    def lora_run(name):
+        mesh_ = meshes.get(name)
+        base = init_params(cfg, TRAIN_SEED, device)
+        if mesh_ is not None:
+            base = train.shard_train_params(mesh_, base, cfg)
+        snapshot = {k: v.clone() for k, v in ckpt.flatten(base["talker"]).items()}
+        adapters, lstate, lopt = lora.init_lora_train_state(cfg, base, rank=LORA_RANK)
+        _zero(kmods)
+        collectives.launches = 0
+        losses = [lora.lora_train_step(base, adapters, lstate, batch, cfg, lopt, mesh=mesh_)[2]
+                  for _ in range(steps)]
+        res = {"losses": [float(x) for x in losses], "launches": _launches(kmods),
+               "collective_launches": collectives.launches,
+               "base_frozen": all(torch.equal(v, snapshot[k])
+                                  for k, v in ckpt.flatten(base["talker"]).items())}
+        _no_kernels(f"phase 13 c {name}", res["launches"])
+        if res["collective_launches"] or not res["base_frozen"]:
+            raise AssertionError(f"phase 13 c {name}: {res}")
+        host = {k: v.cpu() for k, v in ckpt.flatten(adapters).items()}
+        del base, snapshot, adapters, lstate
+        _free(device)
+        return res, host
+
+    c = {"rank": LORA_RANK, "targets": list(lora.DEFAULT_TARGETS), "steps": steps}
+    c["unmeshed"], lref = lora_run("unmeshed")
+    for name in ("dp", "tp", "pp"):
+        c[name], got = lora_run(name)
+        if c[name]["losses"] != c["unmeshed"]["losses"] or not same(got, lref):
+            raise AssertionError(f"phase 13 c {name}: not bit-equal to the unmeshed LoRA run")
+    c["bit_equal"] = True
+    out["c_lora"] = c
+    log(f"phase 13 c_lora ({smi}): {json.dumps(c)}")
+    del lref, got
+
+    # -- d. checkpoints from the TP mesh of one -----------------------------------
+    work = os.path.join(build_dir, "phase13")
+    tp = meshes["tp"]
+    d = {}
+    params = train.shard_train_params(tp, init_params(cfg, TRAIN_SEED, device), cfg)
+    state = optimizer.init(params)
+    for _ in range(steps):
+        params, state, _ = train.train_step(params, state, batch, cfg, optimizer, mesh=tp)
+    t0 = time.perf_counter()
+    train.save_train_state(os.path.join(work, "state"), params, state, steps, mesh=tp, cfg=cfg)
+    d["save_train_state_s"] = time.perf_counter() - t0
+    rp, rstate, rstep = train.restore_train_state(os.path.join(work, "state"), cfg, optimizer,
+                                                  device=device)
+    ok = rstep == steps and same(ckpt.flatten(rp), ckpt.flatten(params))
+    for p, q in zip(train.leaves(params), train.leaves(rp)):
+        s1, s2 = state.state[p], rstate.state[q]
+        ok = ok and s1.keys() == s2.keys() and all(torch.equal(s1[k], s2[k]) for k in s1)
+    if not ok:
+        raise AssertionError("phase 13 d: the TP train state reloaded unmeshed differs")
+    d["train_state_bit_equal"] = True
+    del rp, rstate, state
+    _free(device)
+    model = QwenTTSModel(cfg, params=params, device=device, model_path=LORA_MODEL_PATH)
+    from rho_tts_tpu_torch.parallel import inference
+
+    inference.enable_tensor_parallel(model, tp)
+    t0 = time.perf_counter()
+    model.save_checkpoint(os.path.join(work, "ckpt"))
+    d["save_checkpoint_s"] = time.perf_counter() - t0
+    loaded, manifest = ckpt.load_params(os.path.join(work, "ckpt"), family="qwen", device=device)
+    if not same(ckpt.flatten(loaded), ckpt.flatten(model.params)) \
+            or manifest.get("variant") != "custom-voice":
+        raise AssertionError("phase 13 d: the TP checkpoint reloaded unmeshed differs")
+    d["checkpoint_bit_equal"] = True
+    d["bytes"] = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(work) for f in files)
+    shutil.rmtree(work, ignore_errors=True)
+    del model, loaded, params
+    _free(device)
+    out["d_checkpoints"] = d
+    log(f"phase 13 d_checkpoints ({smi}): {json.dumps(d)}")
+
+    # -- e. walls -------------------------------------------------------------------
+    params = init_params(cfg, TRAIN_SEED, device)
+    state = optimizer.init(params)
+    steppers = {
+        "U": lambda: train.train_step(params, state, batch, cfg, optimizer),
+        "D": lambda: train.train_step(params, state, batch, cfg, optimizer, mesh=meshes["dp"]),
+        "T": lambda: train.train_step(params, state, batch, cfg, optimizer, mesh=meshes["tp"]),
+        "P": lambda: pipeline.pipeline_train_step(params, state, batch, cfg, optimizer,
+                                                  meshes["pp"], 1),
+        "M": lambda: pipeline.pipeline_train_step(params, state, batch, cfg, optimizer,
+                                                  meshes["pp"], PP_MICROBATCHES)}
+    for step in steppers.values():  # warm-up
+        step()
+    _sync(device)
+    order = "".join(np.random.default_rng(0).permutation(list("UDTPM" * SHARDED_WALLS)))
+    walls = {k: [] for k in steppers}
+    for key in order:
+        t0 = time.perf_counter()
+        steppers[key]()
+        _sync(device)
+        walls[key].append(time.perf_counter() - t0)
+
+    def summary(xs):
+        q1, med, q3 = np.percentile(xs, [25, 50, 75])
+        return {"walls_ms": [x * 1e3 for x in xs], "median_ms": med * 1e3, "q1_ms": q1 * 1e3,
+                "q3_ms": q3 * 1e3, "mean_ms": float(np.mean(xs)) * 1e3}
+
+    names = {"U": "unmeshed", "D": "dp", "T": "tp", "P": "pp_m1", "M": f"pp_m{PP_MICROBATCHES}"}
+    e = {"order": order, **{names[k]: summary(v) for k, v in walls.items()}}
+    for k in "DTPM":
+        e[names[k]]["median_vs_unmeshed"] = e[names[k]]["median_ms"] / e["unmeshed"]["median_ms"]
+    del params, state, steppers
+    mesh.shutdown_distributed()
+    if device == "cuda":
+        e["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["e_walls"] = e
+    log(f"phase 13 e_walls ({smi}): {json.dumps(e)}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = {k: sum(out["a_meshes_of_one"][v]["launches"][k]
+                              for v in ("unmeshed", "dp", "tp", "pp"))
+                       + out["b_pp_microbatched"]["pp"]["launches"][k]
+                       + sum(out["c_lora"][v]["launches"][k]
+                             for v in ("unmeshed", "dp", "tp", "pp"))
+                       for k in kmods}
+    return out
+
+
+def _free(device):
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _sync(device):
     if device == "cuda":
         torch.cuda.synchronize()
@@ -3325,6 +3640,9 @@ def main(argv=None) -> int:
     mesh_path = run_parallel_path(qmodel, kmods, smi)
     log(f"phase 12 meshes: every part passed in {mesh_path['wall_s']:.1f} s, peak "
         f"{mesh_path['peak_mem_gb']:.2f} GB")
+    sharded_path = run_sharded_training_path(qmodel, kmods, build_dir, smi)
+    log(f"phase 13 sharded training: every part passed in {sharded_path['wall_s']:.1f} s, "
+        f"peak {sharded_path['e_walls']['peak_gb']:.2f} GB")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -3362,6 +3680,7 @@ def main(argv=None) -> int:
             "c_served_tp": mesh_path["c_serving"]["tp_mesh_of_one"]["launches"][k["name"]],
             "d_chatterbox_tp": mesh_path["d_chatterbox"]["tp_mesh_of_one"]["launches"][k["name"]]}
         k["per_rank_cases"] = mesh_path["e_per_rank"][k["name"]]
+        k["launches_sharded_training"] = sharded_path["launches"][k["name"]]
         if not any(k["launches_parallel"].values()):
             raise AssertionError(f"phase 12: {k['name']} was launched no time on the mesh path")
 

@@ -387,16 +387,24 @@ class ChatterboxModel(nn.Module):
 
     def save_checkpoint(self, path: str) -> None:
         """Export the parameter tree as a native serving checkpoint
-        (pre-quantized when the model is quantized)."""
+        (pre-quantized when the model is quantized). On a mesh every rank
+        calls it; a tensor-parallel model's shards are gathered into the
+        global tree, which the mesh's first rank writes."""
         from .. import checkpoint as ckpt_lib
 
-        if self.tp_axis is not None:
-            raise ValueError("a tensor-parallel model holds this rank's weight shards: save "
-                             "the checkpoint before enable_tensor_parallel")
+        from ...parallel.sharding import whole_params
+
+        params = whole_params(self)  # a TP model's shards gathered (every rank calls)
 
         preset = next((k for k, v in PRESETS.items() if v is self.cfg), "standard")
-        ckpt_lib.save_params(path, self.params, family="chatterbox", preset=preset,
-                             quantization=self.quantization)
+        def write():
+            ckpt_lib.save_params(path, params, family="chatterbox", preset=preset,
+                                 quantization=self.quantization)
+
+        if self.mesh is None:
+            write()
+        else:
+            self.mesh.write_on_first_rank(write)
 
     def _shard_kv(self, rows: int, s: int):
         """This rank's ``(L, rows, s, Hkv, D)`` KV caches: every row (the CFG

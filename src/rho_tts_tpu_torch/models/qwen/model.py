@@ -440,21 +440,28 @@ class QwenTTSModel(nn.Module):
         """Export the parameter tree as a native serving checkpoint.
 
         A quantized model writes its int8 / int4 leaves. The manifest records
-        the CustomVoice/Base ``variant``, as the JAX package's does.
+        the CustomVoice/Base ``variant``, as the JAX package's does. On a mesh
+        every rank calls it: a tensor-parallel model gathers its shards into
+        the global tree (int4 row shards packed whole again), as JAX writes
+        its global arrays, and the mesh's first rank writes it.
         """
         from .. import checkpoint as ckpt_lib
 
-        if self.tp_axis is not None:
-            raise ValueError("a tensor-parallel model holds this rank's weight shards: save "
-                             "the checkpoint before enable_tensor_parallel")
+        from ...parallel.sharding import whole_params
+
+        params = whole_params(self)  # a TP model's shards gathered (every rank calls)
 
         variant = getattr(self, "variant", None) or (
             "custom-voice" if "CustomVoice" in str(self.model_path or "") else "base"
         )
-        ckpt_lib.save_params(
-            path, self.params, family="qwen", preset=self.config.name,
-            quantization=self.quantization, extra={"variant": variant},
-        )
+        def write():
+            ckpt_lib.save_params(path, params, family="qwen", preset=self.config.name,
+                                 quantization=self.quantization, extra={"variant": variant})
+
+        if self.mesh is None:
+            write()
+        else:
+            self.mesh.write_on_first_rank(write)
 
     # -- Mesh helpers ----------------------------------------------------------
 

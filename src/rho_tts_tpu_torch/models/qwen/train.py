@@ -28,19 +28,39 @@ The train state on disk is the port's own format: ``train_state.pt``, a
 the tree's order), the optimizer's ``state_dict()`` and the step. The JAX
 package's orbax directory is not read.
 
-Not ported: ``_constrain`` (a mesh hint; sharded training is ROADMAP queue
-1 item 12b).
+Meshes (``parallel``; one process per GPU, every rank making the same
+call with the WHOLE batch). JAX's ``_constrain`` hints become the explicit
+layout: on a ``(data, model)`` mesh each rank embeds, runs and scores its
+own ``data`` rows, the params are this rank's shards
+(:func:`shard_train_params`: Megatron's column / row cuts, the vocab-sharded
+``text_embed``, the code predictor's ``w1`` / ``w2``) and the TP forward
+runs the differentiable collectives (``parallel.collectives``). The loss
+stays JAX's one global masked mean: the mask count is summed over
+``data`` first, each rank's loss is its rows' masked sum over that global
+count, and those sum over ``data`` (``reduce_from_model``: every rank
+reports the global loss, each keeps its own rows' gradient). The step then
+sums the gradients over ``data`` and AdamW updates the local shards (its
+math is elementwise). On a ``(data, pipe)`` mesh the params hold this
+stage's talker layers and :func:`_forward_loss` runs the talker through
+``parallel.pipeline`` in ``n_microbatches``, so the same steps train every
+mesh. :func:`gather_train_params` and :func:`save_train_state` give back
+the global tree.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from ...parallel import collectives as coll
+from ...parallel import pipeline, sharding
+from ...parallel.inference import shard_batch
+from ...parallel.mesh import mesh_axis
 from .. import checkpoint as ckpt_lib
 from .. import transformer as tfm
 from .config import QwenTTSConfig
@@ -144,12 +164,41 @@ def _apply_updates(optimizer: AdamW, opt_state: torch.optim.Optimizer,
 
 
 def init_train_state(cfg: QwenTTSConfig, seed: int = 0, optimizer: Optional[AdamW] = None,
-                     device=None):
+                     device=None, mesh=None):
     """``(params, opt_state)``: random weights from ``seed`` on ``device``
-    (default ``"cuda"``) and a fresh optimizer state over them."""
+    (default ``"cuda"``, this rank's card under a mesh) and a fresh
+    optimizer state over them; with ``mesh``, over this rank's shards."""
     params = init_params(cfg, seed, device)
+    if mesh is not None:
+        params = shard_train_params(mesh, params, cfg)
     optimizer = optimizer or make_optimizer()
     return params, optimizer.init(params)
+
+
+def _param_specs(mesh, params: Params) -> Params:
+    """The spec tree of a train-params tree on ``mesh``: the TP layout of
+    ``parallel.sharding`` on a ``(data, model)`` mesh, the talker's layers
+    staged on a ``(data, pipe)`` one (the rest replicated)."""
+    if "pipe" in mesh.shape:
+        return {"talker": {"blocks": pipeline.stage_specs(params["talker"]["blocks"])}}
+    return sharding.qwen_param_specs(params)
+
+
+def shard_train_params(mesh, params: Params, cfg: QwenTTSConfig) -> Params:
+    """This rank's shard of a whole train-params tree on ``mesh``: on a
+    ``(data, model)`` mesh the TP layout (``sharding.qwen_param_specs``), on
+    a ``(data, pipe)`` mesh the talker's layers of this stage (as
+    ``pipeline.shard_stack_for_pipeline`` cuts them). Replicated leaves are
+    the caller's tensors."""
+    with torch.no_grad():
+        return sharding.shard_params(mesh, params, _param_specs(mesh, params), cfg.talker)
+
+
+def gather_train_params(mesh, params: Params, cfg: QwenTTSConfig) -> Params:
+    """The whole tree from every rank's shards (a collective: every rank of
+    the mesh calls it and gets the whole tree)."""
+    with torch.no_grad():
+        return sharding.gather_params(mesh, params, _param_specs(mesh, params), cfg.talker)
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -158,18 +207,21 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                            reduction="none").reshape(labels.shape)
 
 
-def _code_predictor_logits(params: Params, h: torch.Tensor, tok0: torch.Tensor) -> torch.Tensor:
+def _code_predictor_logits(params: Params, h: torch.Tensor, tok0: torch.Tensor,
+                           tp=None) -> torch.Tensor:
     """Residual-codebook logits ``(nq-1, B, T, C)`` f32 from the hidden states
-    and the primary code's embedding."""
+    and the primary code's embedding. Under ``tp`` ``w1`` is this rank's
+    columns and ``w2`` its rows (column- then row-parallel)."""
     w1, w2 = params["code_predictor"]["w1"], params["code_predictor"]["w2"]
     e0 = params["audio_embed"][0][tok0]
-    cp_in = torch.cat([h, e0], dim=-1).to(w1.dtype)
+    cp_in = coll.copy_to_model(torch.cat([h, e0], dim=-1).to(w1.dtype), tp)
     hidden = F.silu(torch.einsum("btd,qdc->qbtc", cp_in, w1).float())
-    return torch.einsum("qbtc,qce->qbte", hidden.to(w2.dtype), w2).float()
+    out = torch.einsum("qbtc,qce->qbte", hidden.to(w2.dtype), w2)
+    return coll.reduce_from_model(out, tp).float()
 
 
 def _forward_loss(params: Params, cfg: QwenTTSConfig, batch: Dict[str, torch.Tensor],
-                  stack_fn=None) -> torch.Tensor:
+                  stack_fn=None, mesh=None, n_microbatches: Optional[int] = None) -> torch.Tensor:
     """Teacher-forced CE loss (a 0-d f32 tensor).
 
     batch:
@@ -178,10 +230,21 @@ def _forward_loss(params: Params, cfg: QwenTTSConfig, batch: Dict[str, torch.Ten
       codes_mask: (B, Tc) bool
 
     ``stack_fn`` swaps the talker forward (the contract of
-    ``transformer.stack_forward`` without caches), for a pipelined forward.
+    ``transformer.stack_forward`` without caches).
+    ``mesh``: ``params`` are this rank's shards and ``batch`` the whole
+    batch, of which this rank scores its ``data`` rows; every rank returns
+    the global loss, whose gradient on each rank is that of its own rows
+    (the module docstring). A mesh with a ``pipe`` axis runs the talker
+    through ``pipeline`` in ``n_microbatches`` (default: one per stage).
     """
-    if stack_fn is None:
-        stack_fn = tfm.stack_forward
+    data, tp = mesh_axis(mesh, "data"), mesh_axis(mesh, "model")
+    if stack_fn is None and mesh is not None and "pipe" in mesh.shape:
+        stack_fn = functools.partial(pipeline._local_stack_forward, mesh=mesh,
+                                     n_microbatches=n_microbatches)
+    elif stack_fn is None:
+        stack_fn = functools.partial(tfm.stack_forward, tp=tp)
+    if mesh is not None:  # this rank's rows
+        batch = shard_batch(batch, mesh)
     text_ids = batch["text_ids"].long()
     codes = batch["codes"].long()
     mask = batch["codes_mask"].float()
@@ -189,7 +252,7 @@ def _forward_loss(params: Params, cfg: QwenTTSConfig, batch: Dict[str, torch.Ten
     tc = codes.shape[1]
     nq = cfg.codec.n_codebooks
 
-    text_emb = params["text_embed"][text_ids]
+    text_emb = coll.vocab_embed(params["text_embed"], text_ids, tp, differentiable=True)
     bos = params["audio_embed"][0][cfg.audio_bos][None, None, :].expand(b, 1, text_emb.shape[-1])
     audio_in = params["audio_embed"][0][codes[:, :-1, 0]]
     for q in range(1, nq):
@@ -203,24 +266,43 @@ def _forward_loss(params: Params, cfg: QwenTTSConfig, batch: Dict[str, torch.Ten
 
     logits = h_audio.float() @ params["lm_head"].float()
     primary_ce = _ce(logits, codes[..., 0])
-    denom = mask.sum().clamp_min(1.0)
+    # The global mask count: the denominator needs no gradient.
+    denom = coll.all_reduce_sum(mask.sum(), data).clamp_min(1.0)
     loss = (primary_ce * mask).sum() / denom
 
     if nq > 1:
-        res_logits = _code_predictor_logits(params, h_audio, codes[..., 0])
+        res_logits = _code_predictor_logits(params, h_audio, codes[..., 0], tp)
         for q in range(1, nq):
             ce = _ce(res_logits[q - 1], codes[..., q])
             loss = loss + (ce * mask).sum() / denom / (nq - 1)
-    return loss
+    return coll.reduce_from_model(loss, data)
+
+
+def loss_and_grads(params: Params, cfg: QwenTTSConfig, batch: Dict[str, torch.Tensor],
+                   mesh=None, n_microbatches: Optional[int] = None):
+    """``(loss, grads)``: the global loss and every leaf's gradient (in
+    :func:`leaves` order), summed over ``data``: what :func:`train_step`
+    applies. On a mesh each rank holds its shards' gradients."""
+    loss, grads = _value_and_grad(
+        lambda: _forward_loss(params, cfg, batch, mesh=mesh, n_microbatches=n_microbatches),
+        leaves(params))
+    return loss, coll.sum_gradients(grads, [mesh_axis(mesh, "data")])
 
 
 def train_step(params: Params, opt_state: torch.optim.AdamW, batch: Dict[str, torch.Tensor],
-               cfg: QwenTTSConfig, optimizer: AdamW) -> Tuple[Params, Any, torch.Tensor]:
+               cfg: QwenTTSConfig, optimizer: AdamW, mesh=None,
+               n_microbatches: Optional[int] = None) -> Tuple[Params, Any, torch.Tensor]:
     """One optimizer step over every leaf; ``params`` are updated in place
-    and returned with the state and the loss (on the params' device)."""
-    trained = leaves(params)
-    loss, grads = _value_and_grad(lambda: _forward_loss(params, cfg, batch), trained)
-    _apply_updates(optimizer, opt_state, trained, grads)
+    and returned with the state and the loss (on the params' device).
+
+    ``mesh``: ``params`` / ``opt_state`` are this rank's shards
+    (:func:`init_train_state` or :func:`shard_train_params`), ``batch`` the
+    whole batch on every rank; the gradients sum over ``data`` before the
+    update and every rank returns the global loss. ``n_microbatches``: the
+    pipeline's, on a mesh with a ``pipe`` axis.
+    """
+    loss, grads = loss_and_grads(params, cfg, batch, mesh, n_microbatches)
+    _apply_updates(optimizer, opt_state, leaves(params), grads)
     return params, opt_state, loss
 
 
@@ -244,19 +326,68 @@ def _state_file(path: str) -> str:
     return f
 
 
-def save_train_state(path: str, params: Params, opt_state: torch.optim.AdamW, step: int) -> None:
-    """Save ``{params, opt_state, step}`` to ``path`` (a directory)."""
+def _like(tree, values):
+    """A tree shaped as ``tree`` holding ``values`` in :func:`leaves` order."""
+    it = iter(values)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return next(it)
+
+    return walk(tree)
+
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _map_moments(opt_sd: Dict[str, Any], params: Params, fn) -> Dict[str, Any]:
+    """``opt_sd`` (an AdamW ``state_dict()`` over ``leaves(params)``) with
+    each moment's tree replaced by ``fn(tree)``."""
+    state = {i: dict(v) for i, v in opt_sd["state"].items()}
+    if state:
+        for key in _MOMENTS:
+            moved = leaves(fn(_like(params, [state[i][key] for i in range(len(state))])))
+            for i, t in enumerate(moved):
+                state[i][key] = t
+    return {**opt_sd, "state": state}
+
+
+def save_train_state(path: str, params: Params, opt_state: torch.optim.AdamW, step: int,
+                     mesh=None, cfg: Optional[QwenTTSConfig] = None) -> None:
+    """Save ``{params, opt_state, step}`` to ``path`` (a directory).
+
+    ``mesh`` (with ``cfg``): every rank calls it; the params and AdamW's
+    moments are gathered into the global tree (``gather_train_params``),
+    which the mesh's first rank writes, so :func:`restore_train_state`
+    reloads it unmeshed, or onto a mesh."""
     f = _state_file(path)
-    os.makedirs(os.path.dirname(f), exist_ok=True)
-    torch.save({"params": ckpt_lib.flatten(params), "opt_state": opt_state.state_dict(),
-                "step": int(step)}, f)
+    opt_sd = opt_state.state_dict()
+    if mesh is not None:
+        if cfg is None:
+            raise ValueError("save_train_state on a mesh needs cfg (the heads of wqkv)")
+        opt_sd = _map_moments(opt_sd, params, lambda t: gather_train_params(mesh, t, cfg))
+        params = gather_train_params(mesh, params, cfg)
+
+    def write():
+        os.makedirs(os.path.dirname(f), exist_ok=True)
+        torch.save({"params": ckpt_lib.flatten(params), "opt_state": opt_sd,
+                    "step": int(step)}, f)
+
+    if mesh is None:
+        write()
+    else:
+        mesh.write_on_first_rank(write)
 
 
 def restore_train_state(path: str, cfg: QwenTTSConfig, optimizer: Optional[AdamW] = None,
-                        device=None):
+                        device=None, mesh=None):
     """Restore ``(params, opt_state, step)`` saved by :func:`save_train_state`
     onto ``device`` (default ``"cuda"``), in a fresh process too; the params'
-    shapes are checked against ``cfg``."""
+    shapes are checked against ``cfg``. ``mesh``: the params and moments
+    come back as this rank's shards (:func:`shard_train_params`)."""
     # Read on the host: the optimizer keeps its step counts there, and
     # load_state_dict moves the moments to their leaves' device.
     state = torch.load(_state_file(path), weights_only=True, map_location="cpu", mmap=True)
@@ -267,6 +398,10 @@ def restore_train_state(path: str, cfg: QwenTTSConfig, optimizer: Optional[AdamW
     got = {k: tuple(params[k].shape) for k in want}
     if got != want or params["talker"]["blocks"]["attn_norm"].shape != (t.layers, t.hidden):
         raise ValueError(f"train state at {path} does not match config {cfg.name!r}: {got}")
+    opt_sd = state["opt_state"]
+    if mesh is not None:
+        opt_sd = _map_moments(opt_sd, params, lambda tree: shard_train_params(mesh, tree, cfg))
+        params = shard_train_params(mesh, params, cfg)
     opt_state = (optimizer or make_optimizer()).init(params)
-    opt_state.load_state_dict(state["opt_state"])
+    opt_state.load_state_dict(opt_sd)
     return params, opt_state, int(state["step"])

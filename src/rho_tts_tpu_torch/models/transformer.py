@@ -28,8 +28,11 @@ caller's ``(L, B, S, Hkv, D)`` tensors are written and returned.
 Meshes (``parallel``): under tensor parallelism (``tp``, the mesh's
 ``model`` axis) the weights are this rank's shards, the block computes its
 local heads (:func:`local_config`) and sums the row-parallel ``wo`` and
-``w_down`` over the axis. A sequence-parallel prefill (``sp_mesh``) runs
-each rank's slice of the prompt and all-gathers K/V for the attention.
+``w_down`` over the axis: in place on the cached path, through the
+differentiable ``copy_to_model`` / ``reduce_from_model`` pair on the
+cache-less one (sharded training). A sequence-parallel prefill
+(``sp_mesh``) runs each rank's slice of the prompt and all-gathers K/V for
+the attention.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
-from ..parallel.collectives import all_gather
+from ..parallel.collectives import all_gather, copy_to_model, reduce_from_model
 from .quantization import matmul as qmm
 
 Params = Dict[str, Any]
@@ -154,25 +157,31 @@ def _split_qkv(qkv: torch.Tensor, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
-def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope):
-    """Attention norm, the fused QKV matmul and RoPE: ``(q, k, v)``."""
-    h = rms_norm(x, params["attn_norm"], cfg.rms_eps)
+def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope, tp_grad=None):
+    """Attention norm, the fused QKV matmul and RoPE: ``(q, k, v)``.
+    ``tp_grad``: the differentiable TP forward's axis (``copy_to_model``
+    before the column-parallel ``wqkv``)."""
+    h = copy_to_model(rms_norm(x, params["attn_norm"], cfg.rms_eps), tp_grad)
     qkv = qmm(h, params["wqkv"])
     q, k, v = _split_qkv(qkv, cfg)
     return _rotate(q, *rope), _rotate(k, *rope), v
 
 
 def _out_and_mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor,
-                 attn: torch.Tensor, tp=None) -> torch.Tensor:
+                 attn: torch.Tensor, tp=None, tp_grad=None) -> torch.Tensor:
     """Output projection and residual, then the SwiGLU MLP and residual.
-    Under ``tp`` the row-parallel ``wo`` and ``w_down`` sum over the axis."""
+    Under ``tp`` the row-parallel ``wo`` and ``w_down`` sum over the axis in
+    place; under ``tp_grad`` through the differentiable pair (Megatron's
+    ``copy_to_model`` before ``w_gate`` / ``w_up``, ``reduce_from_model``
+    after ``wo`` and ``w_down``)."""
     b, t, _ = x.shape
     attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
-    x = x + qmm(attn, params["wo"], reduce=tp)
-    h = rms_norm(x, params["mlp_norm"], cfg.rms_eps)
+    x = x + reduce_from_model(qmm(attn, params["wo"], reduce=tp), tp_grad)
+    h = copy_to_model(rms_norm(x, params["mlp_norm"], cfg.rms_eps), tp_grad)
     gate = F.silu(qmm(h, params["w_gate"]).float())
     up = qmm(h, params["w_up"]).float()
-    return x + qmm((gate * up).to(x.dtype), params["w_down"], reduce=tp)
+    down = qmm((gate * up).to(x.dtype), params["w_down"], reduce=tp)
+    return x + reduce_from_model(down, tp_grad)
 
 
 def _masked_attention(q, k, v, mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -209,6 +218,7 @@ def block_forward(
     fused_prefill: bool = False,
     rope=None,
     mask: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One cache-less transformer block: plain causal attention over T.
 
@@ -217,7 +227,10 @@ def block_forward(
     softmax / ``_gqa_mix`` and never a Pallas kernel. ``rope`` (the cos/sin
     tables of ``positions``) and ``mask`` (:func:`_causal_mask`) let
     :func:`stack_forward` build them once for every layer. A ``kv_cache``
-    raises, as in JAX: cached attention is :func:`stack_forward`'s.
+    raises, as in JAX: cached attention is :func:`stack_forward`'s. Under
+    ``tp`` the weights are this rank's shards and ``cfg`` its
+    :func:`local_config`; the partial sums go through the differentiable
+    collectives.
     """
     if kv_cache is not None:
         raise ValueError(
@@ -228,9 +241,9 @@ def block_forward(
         rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     if mask is None:
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
-    q, k, v = _qkv(params, cfg, x, rope)
+    q, k, v = _qkv(params, cfg, x, rope, tp_grad=tp)
     attn = _masked_attention(q, k, v, mask, cfg)
-    return _out_and_mlp(params, cfg, x, attn), (k, v)
+    return _out_and_mlp(params, cfg, x, attn, tp_grad=tp), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -428,14 +441,14 @@ def stack_forward(
 
     ``tp`` (the mesh's ``model`` axis, weights sharded over it) runs the
     local heads and sums the row-parallel matmuls; the caches hold the
-    local KV heads. ``sp_mesh`` makes a fused prefill into an empty cache
+    local KV heads. Without caches (sharded training) the sums are
+    differentiable (``copy_to_model`` / ``reduce_from_model``) and the K/V
+    returned are the local heads'. ``sp_mesh`` makes a fused prefill into an empty cache
     sequence-parallel: every rank passes the WHOLE prompt (``x``,
     ``positions``, ``attn_mask``), computes its ``1/mp`` slice over the
     mesh's ``model`` axis, writes every layer's whole K/V (all-gathered)
     and returns the whole hidden states (all-gathered), as JAX's sharded
-    arrays read; other forwards ignore it, as JAX's do. ``tp`` is
-    inference-only (the collectives have no backward): the cache-less
-    forward raises under it.
+    arrays read; other forwards ignore it, as JAX's do.
 
     ``kv_window`` (not ported: the decode kernel skips masked slots) raises
     ``NotImplementedError``.
@@ -465,15 +478,11 @@ def stack_forward(
     # (L, ...) gradient for every layer.
     per_layer = {name: _unbind(w) for name, w in blocks.items()}
     if kv_caches is None:
-        if tp is not None:
-            raise NotImplementedError(
-                "a tensor-parallel cache-less forward (sharded training) is not ported yet: "
-                "ROADMAP queue 1 item 12b")
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
         ks, vs = [], []
         for layer in range(int(blocks["attn_norm"].shape[0])):
             lp = {name: w[layer] for name, w in per_layer.items()}
-            x, (k, v) = block_forward(lp, cfg, x, positions, rope=rope, mask=mask)
+            x, (k, v) = block_forward(lp, cfg, x, positions, rope=rope, mask=mask, tp=tp)
             ks.append(k)
             vs.append(v)
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)

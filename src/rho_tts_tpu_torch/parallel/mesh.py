@@ -4,7 +4,9 @@ Counterpart of ``rho_tts_tpu/parallel/mesh.py``. Axis convention as JAX's:
 
 * ``data``  -- batch/data parallelism (segments, texts, serving slots);
 * ``model`` -- tensor parallelism (attention heads, FFN columns), or the
-  prompt axis under sequence-parallel prefill.
+  prompt axis under sequence-parallel prefill;
+* ``pipe``  -- pipeline stages of the talker's layers (``parallel.pipeline``,
+  a ``(data, pipe)`` mesh from ``create_mesh(axis_names=...)``).
 
 Execution model. JAX runs one controller per host that drives every
 device. The port runs ONE PROCESS PER GPU, SPMD, on ``torch.distributed``:
@@ -86,6 +88,20 @@ class Mesh:
 
     def axis(self, name: str) -> Axis:
         return self._axes[name]
+
+    def write_on_first_rank(self, write) -> None:
+        """``write()`` on the mesh's first rank while the others wait at a
+        barrier (over ``control``; none on a mesh of one): one writer of a
+        file every rank asks for."""
+        if self.control.index == 0:
+            write()
+        if self.control.group is not None:
+            dist.barrier(group=self.control.group)
+
+
+def mesh_axis(mesh: Optional[Mesh], name: str) -> Optional[Axis]:
+    """``mesh``'s ``name`` axis, or None (no mesh, or no such axis)."""
+    return mesh.axis(name) if mesh is not None and name in mesh.shape else None
 
 
 def default_mesh_shape(n_devices: int, model_parallel: Optional[int] = None) -> Tuple[int, int]:

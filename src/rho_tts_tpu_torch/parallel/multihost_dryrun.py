@@ -11,11 +11,19 @@ with rows split over the global ``data`` axis:
 2. the continuous-batching :class:`~rho_tts_tpu_torch.serving.ServingEngine`
    itself: admission prefill, ring scatters, the lagged done-flag harvest
    (all-gathered over ``data``) and retire vocode, every process driving
-   the same deterministic scheduler.
+   the same deterministic scheduler;
+3. with an even number of processes, the pipeline-parallel train step of
+   JAX's ``dryrun_multichip``: tiny's 2 talker layers on 2 stages of a
+   ``(data, pipe)`` mesh, a batch of ``4 * data``, 2 microbatches.
 
 Certification: every process's gathered tokens and codes equal a
-process-local reference bit for bit. The processes run gloo on the CPU,
-or NCCL with one card each where there are as many cards as processes.
+process-local reference bit for bit; the pipelined step's gradients
+(summed over ``data``, gathered over ``pipe``) within ``PP_GRAD_TOL`` of a
+process-local unpipelined step's, its loss the same on every process and
+within ``PP_LOSS_RTOL`` of the unpipelined ``train_step``'s, its gathered
+params within ``PP_PARAM_TOL``. The
+processes run gloo on the CPU, or NCCL with one card each where there are
+as many cards as processes.
 
 Run one worker per process::
 
@@ -32,6 +40,74 @@ import os
 import subprocess
 import sys
 import tempfile
+
+
+#: JAX's dryrun bound on the pipelined loss (``__graft_entry__.py:311``)
+PP_LOSS_RTOL = 1e-3
+#: each leaf's first-step gradient, in units of that leaf's largest
+#: unpipelined gradient: bf16 activations rounded apart by the microbatched
+#: GEMMs (measured with gloo on the CPU: 0.0076 on (1, 2) and (2, 2)). A
+#: backward that lost a stage's gradient, or counted it twice, is off by 1.
+PP_GRAD_TOL = 2.0 ** -4
+#: the params after one AdamW step (lr 1e-4) on tiny's bf16 weights, as
+#: (relative, absolute): one bf16 rounding of the value (2 ** -8 of it),
+#: and JAX's pipeline-test bound of 5e-4 (``tests/test_pipeline_parallel.py``:
+#: the first step is sign-like, so a near-zero gradient whose sign turns
+#: with the order of the sums moves a param by 2 lr). It shows that the step
+#: ran, not that its gradients are right: that is ``PP_GRAD_TOL``'s part.
+PP_PARAM_TOL = (2.0 ** -8, 5e-4)
+
+
+def _grad_error(ours, ref) -> float:
+    """The largest ``|ours - ref|`` over leaves, in units of each leaf's
+    largest ``|ref|`` (absolute where a leaf has no gradient)."""
+    worst = 0.0
+    for o, r in zip(ours, ref):
+        top = float(r.float().abs().max()) if r.numel() else 0.0
+        err = float((o.float() - r.float()).abs().max()) if r.numel() else 0.0
+        worst = max(worst, err / top if top > 0 else err)
+    return worst
+
+
+def _pipeline_step(n: int, dev) -> dict:
+    """The PP train step of JAX's ``dryrun_multichip`` on this process."""
+    import torch
+
+    from ..models.qwen import PRESETS, train
+    from ..models.qwen.model import init_params
+    from .collectives import all_gather
+    from .pipeline import create_pipeline_mesh
+
+    cfg = PRESETS["tiny"]  # 2 talker layers: 2 stages
+    mesh = create_pipeline_mesh(n, n_stages=2)
+    b, tt, tc = 4 * mesh.shape["data"], 8, 16
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    batch = {
+        "text_ids": torch.randint(0, cfg.text_vocab, (b, tt), generator=gen).to(dev),
+        "codes": torch.randint(0, cfg.codec.codebook_size, (b, tc, cfg.codec.n_codebooks),
+                               generator=gen).to(dev),
+        "codes_mask": torch.ones((b, tc), dtype=torch.bool, device=dev),
+    }
+    optimizer = train.make_optimizer()
+    ref = init_params(cfg, 0, dev)
+    _, ref_grads = train.loss_and_grads(ref, cfg, batch)
+    ref, _, ref_loss = train.train_step(ref, optimizer.init(ref), batch, cfg, optimizer)
+    params = train.shard_train_params(mesh, init_params(cfg, 0, dev), cfg)
+    _, grads = train.loss_and_grads(params, cfg, batch, mesh=mesh, n_microbatches=2)
+    grads = train.gather_train_params(mesh, train._like(params, grads), cfg)
+    grad_err = _grad_error(train.leaves(grads), ref_grads)
+    params, _, loss = train.train_step(params, optimizer.init(params), batch, cfg, optimizer,
+                                       mesh=mesh, n_microbatches=2)
+    losses = all_gather(loss.detach().float().cpu().reshape(1), 0, mesh.control)
+    whole = train.leaves(train.gather_train_params(mesh, params, cfg))
+    rel, atol = PP_PARAM_TOL
+    err = max(float(((w.float() - r.float()).abs() - rel * r.float().abs()).max())
+              for w, r in zip(whole, train.leaves(ref)))
+    lp, lr = float(loss), float(ref_loss)
+    ok = (bool((losses == losses[0]).all()) and abs(lp - lr) <= PP_LOSS_RTOL * max(1.0, abs(lr))
+          and grad_err <= PP_GRAD_TOL and err <= atol)
+    return {"ok": ok, "mesh": mesh.shape, "loss": lp, "ref_loss": lr, "grad_error": grad_err,
+            "param_excess": err}
 
 
 def _worker_main(argv=None) -> int:
@@ -121,13 +197,21 @@ def _worker_main(argv=None) -> int:
     mesh_codes = run_engine(meshed)
     serve_ok = all(np.array_equal(x, y) for x, y in zip(ref_codes, mesh_codes))
     ok = ok and serve_ok
+    pp = ""
+    if args.num_processes % 2 == 0:
+        step = _pipeline_step(args.num_processes, dev)
+        ok = ok and step["ok"]
+        pp = (f" pp={'OK' if step['ok'] else 'MISMATCH'} pp_mesh={step['mesh']} "
+              f"pp_loss={step['loss']!r} pp_ref_loss={step['ref_loss']!r} "
+              f"pp_grad_error={step['grad_error']:.3g} "
+              f"pp_param_excess={step['param_excess']:.3g}")
     with open(args.out, "w") as fh:
         fh.write(
             f"{'OK' if ok else 'MISMATCH'} proc={args.process_id} "
             f"procs={args.num_processes} device={args.device} mesh={mesh.shape} "
             f"checksum={int(toks.sum())} serve={'OK' if serve_ok else 'MISMATCH'} "
             f"serve_slots={n_slots} serve_reqs={len(texts)} "
-            f"serve_checksum={sum(int(c.sum()) for c in mesh_codes)}\n")
+            f"serve_checksum={sum(int(c.sum()) for c in mesh_codes)}{pp}\n")
     shutdown_distributed()
     return 0 if ok else 1
 

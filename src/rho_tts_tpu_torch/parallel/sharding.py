@@ -38,6 +38,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.cuda.int4_matmul import unpack_int4
+from .collectives import all_gather
 from .mesh import Axis, Mesh
 
 Params = Dict[str, Any]
@@ -149,16 +150,21 @@ def _cut_heads(x: torch.Tensor, axis: Axis, cfg) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def _pack_rows(vals: torch.Tensor) -> torch.Tensor:
+    """Signed nibbles ``(..., K, N)`` packed as ``pack_int4`` packs them: row
+    i in the low nibble of byte i, row i + K/2 in its high nibble."""
+    k = vals.shape[-2]
+    if k % 2:
+        raise ValueError(f"an int4 row shard of {k} rows cannot be packed")
+    b = ((vals[..., k // 2:, :] & 0xF) << 4) | (vals[..., : k // 2, :] & 0xF)
+    return torch.where(b > 127, b - 256, b).to(torch.int8)
+
+
 def _repack_int4_rows(q4: torch.Tensor, axis: Axis) -> torch.Tensor:
     """This rank's contiguous K shard of packed int4 ``(..., K/2, N)``,
     repacked in halves of its own: ``(..., K/(2*size), N)``."""
     vals = unpack_int4(q4).to(torch.int32)  # (..., K, N) signed nibbles
-    mine = _cut(vals, vals.dim() - 2, axis)
-    kl = mine.shape[-2]
-    if kl % 2:
-        raise ValueError(f"an int4 row shard of {kl} rows cannot be packed")
-    b = ((mine[..., kl // 2:, :] & 0xF) << 4) | (mine[..., : kl // 2, :] & 0xF)
-    return torch.where(b > 127, b - 256, b).to(torch.int8)
+    return _pack_rows(_cut(vals, vals.dim() - 2, axis))
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
@@ -205,6 +211,75 @@ def shard_params(mesh: Mesh, params: Params, specs: Params, talker_cfg=None) -> 
         return leaf
 
     return place((), params)
+
+
+def gather_params(mesh: Mesh, local: Params, specs: Params, talker_cfg=None) -> Params:
+    """The whole tree from every rank's shards: the inverse of
+    :func:`shard_params` (a collective: every rank of the mesh calls it and
+    gets the whole tree). ``wqkv``'s head columns go back to ``[q | k | v]``
+    and int4 row shards are unpacked, gathered and packed whole again, so
+    the result is bit for bit the tree that was cut."""
+    spec_map = _flatten(specs)
+
+    def place(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: place(path + (str(k),), v) for k, v in leaf.items()}
+        if isinstance(leaf, (list, tuple)):
+            return [place(path + (str(i),), v) for i, v in enumerate(leaf)]
+        spec = spec_map.get(path, ())
+        for dim, name in enumerate(spec):
+            if name is None or mesh.shape.get(name, 1) == 1:
+                continue
+            axis = mesh.axis(name)
+            if "wqkv" in path and dim == len(spec) - 1:
+                if talker_cfg is None:
+                    raise ValueError("gather_params: joining wqkv needs talker_cfg")
+                leaf = _gather_heads(leaf, axis, talker_cfg)
+            elif path[-1] == "q4" and dim == len(spec) - 2:
+                vals = unpack_int4(leaf).to(torch.int32)
+                leaf = _pack_rows(all_gather(vals, vals.dim() - 2, axis))
+            else:
+                leaf = all_gather(leaf, dim, axis)
+        return leaf
+
+    return place((), local)
+
+
+def _gather_heads(x: torch.Tensor, axis: Axis, cfg) -> torch.Tensor:
+    """The whole fused ``[q | k | v]`` last axis from every rank's
+    ``[q_r | k_r | v_r]`` (the inverse of :func:`_cut_heads`)."""
+    d, n = cfg.head_dim, axis.size
+    widths = [h // n * d for h in (cfg.q_heads, cfg.kv_heads, cfg.kv_heads)]
+    ranks = all_gather(x, x.dim() - 1, axis).split(sum(widths), dim=-1)
+    parts = [r.split(widths, dim=-1) for r in ranks]
+    return torch.cat([p[i] for i in range(3) for p in parts], dim=-1)
+
+
+def whole_params(model) -> Params:
+    """A model's whole params tree: on a tensor-parallel mesh its shards
+    gathered (a collective), else its own tree."""
+    if model.tp_axis is None:
+        return model.params
+    with torch.no_grad():
+        return gather_params(model.mesh, model.params, param_specs_for(model.params),
+                             model.config.talker)
+
+
+def cut_lora(name: str, a: torch.Tensor, b: torch.Tensor, axis: Optional[Axis], talker_cfg=None,
+             pipe: Optional[Axis] = None):
+    """The LoRA factors whose product is this rank's cut of ``a @ b`` for the
+    block weight ``name``: ``b``'s columns of a column-parallel weight
+    (``wqkv`` by heads), ``a``'s rows of a row-parallel one, and this
+    pipeline stage's layers of both. Differentiable; the whole factors on
+    ``None`` or axes of one."""
+    if pipe is not None and pipe.size > 1:
+        a, b = _cut(a, 0, pipe), _cut(b, 0, pipe)
+    if axis is None or axis.size == 1:
+        return a, b
+    spec = _BLOCK_SPECS[name]
+    if spec[-1] == "model":
+        return a, (_cut_heads(b, axis, talker_cfg) if name == "wqkv" else _cut(b, 2, axis))
+    return _cut(a, 1, axis), b
 
 
 def batch_sharding(mesh: Mesh, ndim: int) -> Spec:

@@ -305,15 +305,17 @@ class QwenTTS(BaseTTS):
         """One batched model call; waveforms stay on the model's device.
 
         Row seeds come from the engine's key chain as in the JAX package
-        (``_derive_row_seeds(next_rng(), n)``). With a draft model, a single
-        text takes speculative decoding from the next key.
+        (``_derive_row_seeds(next_rng(), n)``). With a draft model and no
+        ``parallelism``, a single text takes speculative decoding from the
+        next key; under ``parallelism`` it runs the (meshed) batch, as in the
+        JAX package, whether or not the world turned out to have one rank.
         """
         from ..models.qwen.model import _derive_row_seeds
 
         model, voice = self._route()
         is_single = isinstance(text, str)
         text_list = [text] if is_single else list(text)
-        if len(text_list) == 1 and self.draft_model_path:
+        if len(text_list) == 1 and self.draft_model_path and not self.parallelism:
             # Single-segment latency path: draft-verify speculative decode
             wav, _sr = model.synthesize_speculative(
                 text_list[0], self._load_draft(), gamma=self.speculative_gamma,
@@ -355,11 +357,12 @@ class QwenTTS(BaseTTS):
     def _stream_audio_chunks(self, text: str, cancellation_token=None):
         """Chunked streaming via the codec-LM's sliding-window vocoder.
 
-        Speculative decoding keeps per-segment streaming (None: the engine
-        falls back)."""
+        Single-stream only: ``parallelism`` and speculative decoding keep
+        per-segment streaming (None: the engine falls back), as in the JAX
+        package."""
         from ..models.qwen.model import _derive_row_seeds
 
-        if self.draft_model_path:
+        if self.parallelism or self.draft_model_path:
             return None
         model, voice = self._route()
         cancel_check = cancellation_token.raise_if_cancelled if cancellation_token else None

@@ -56,6 +56,10 @@ class FakeMesh:
     def axis(self, name):
         return self._axes[name]
 
+    def write_on_first_rank(self, write):
+        if self._axes["data"].index == 0 and self._axes["model"].index == 0:
+            write()
+
 
 def _flat(tree, prefix=()):
     if isinstance(tree, dict):
@@ -265,19 +269,60 @@ def test_create_mesh_needs_a_process_group_and_a_big_enough_world(world_of_one):
     assert not mesh.initialize_distributed()  # no coordinator in the environment
 
 
-def test_tensor_parallel_model_refuses_to_save_its_shards(tiny_params, tmp_path):
+def _save_tp_checkpoint(tiny_params, path, quant, monkeypatch):
+    """Rank 0 of a TP model over a model axis of 2 saves its checkpoint, the
+    gather emulated in process: rank 1's shards (its model's inputs to
+    ``all_gather``, recorded) join rank 0's. Returns rank 0's model, the
+    unsharded model's flat params and the saved ones."""
+    from rho_tts_tpu_torch.models import checkpoint as ckpt
+
+    def tp_model(index):
+        m = TModel(TPRESETS["tiny"], params=tiny_params, device="cpu", quantization=quant)
+        inference.enable_tensor_parallel(m, FakeMesh(2, index))
+        return m
+
+    whole = ckpt.flatten(TModel(TPRESETS["tiny"], params=tiny_params, device="cpu",
+                                quantization=quant).params)
+    m, other = tp_model(0), tp_model(1)
+    recorded = []
+    monkeypatch.setattr(sharding, "all_gather",
+                        lambda x, dim, axis: recorded.append(x) or torch.cat([x, x], dim))
+    sharding.whole_params(other)
+    parts = iter(recorded)
+    monkeypatch.setattr(sharding, "all_gather",
+                        lambda x, dim, axis: torch.cat([x, next(parts)], dim))
+    m.save_checkpoint(path)
+    saved, manifest = ckpt.load_params(path, family="qwen", device="cpu")
+    assert manifest["quantization"] == quant
+    return m, whole, ckpt.flatten(saved)
+
+
+def test_tensor_parallel_model_refuses_to_save_its_shards(tiny_params, tmp_path, monkeypatch):
     """A TP model holds this rank's shards (here rank 0's cut of a model
     axis of 2: its heads, its ffn columns, half the text vocab); saving
-    them as a checkpoint would write a partial tree, so it raises."""
-    m = TModel(TPRESETS["tiny"], params=tiny_params, device="cpu")
-    inference.enable_tensor_parallel(m, FakeMesh(2, 0))
+    them as they are would write a partial tree, so ``save_checkpoint``
+    gathers them and writes the whole tree, the unsharded model's params bit
+    for bit (in process, :func:`_save_tp_checkpoint`; real worlds:
+    ``test_torch_port_train_sharded.py``)."""
+    m, whole, saved = _save_tp_checkpoint(tiny_params, str(tmp_path / "ckpt"), None, monkeypatch)
     cfg = TPRESETS["tiny"].talker
     assert m.params["talker"]["blocks"]["wqkv"].shape[-1] == (cfg.q_heads + 2 * cfg.kv_heads) \
         * cfg.head_dim // 2
     assert m.params["text_embed"].shape[0] == TPRESETS["tiny"].text_vocab // 2
     assert dict(m.named_parameters())["text_embed"] is m.params["text_embed"]  # re-registered
-    with pytest.raises(ValueError, match="shards"):
-        m.save_checkpoint(str(tmp_path / "ckpt"))
+    assert list(saved) == list(whole) and all(torch.equal(saved[k], whole[k]) for k in whole)
+
+
+def test_tensor_parallel_int4_checkpoint_packs_row_shards_whole(tiny_params, tmp_path,
+                                                                monkeypatch):
+    """An int4 TP model's row-parallel shards (``wo``, ``w_down``) hold their
+    K rows repacked in halves of their own; the saved checkpoint packs the
+    whole K again, as ``pack_int4`` packed it: bit for bit."""
+    m, whole, saved = _save_tp_checkpoint(tiny_params, str(tmp_path / "ckpt"), "int4",
+                                          monkeypatch)
+    cfg = TPRESETS["tiny"].talker
+    assert m.params["talker"]["blocks"]["wo"]["q4"].shape[-2] == cfg.q_heads * cfg.head_dim // 4
+    assert list(saved) == list(whole) and all(torch.equal(saved[k], whole[k]) for k in whole)
 
 
 def test_shard_batch_gives_each_data_rank_its_rows():

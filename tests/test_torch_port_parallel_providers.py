@@ -9,6 +9,11 @@ world's two ranks (``(2, 1)`` for data, ``(1, 2)`` for tensor: the
 whole result, and its waveforms agree with the JAX provider's on the same
 mesh of its virtual devices within 1e-4.
 
+With a ``draft_model_path`` the flag keeps the JAX routing: a one-segment
+``generate()`` runs the meshed batch (no speculative decode) and
+``stream()`` yields whole segments (no chunked streaming), each within
+1e-4 of the JAX provider on its mesh.
+
 The same holds for ``serving=True``: three segments on two slots go
 through each family's serving engine, started on its background thread in
 every rank, with the second rank's segments arriving late and one at a
@@ -38,6 +43,8 @@ SERVED = dict(max_chars_per_segment=20, serving=True, serving_slots=2, serving_m
               serving_max_frames=128)
 SERVED_TEXT = "Hello there. Nice to meet you. A third line here."
 SERVED_CASES = [("qwen", "data"), ("qwen", "tensor"), ("cb", "data")]
+DRAFT = dict(draft_model_path="draft")
+STREAM_KW = dict(max_chars_per_segment=20)  # SERVED_TEXT in three segments
 WAV_TOL = 1e-4
 
 
@@ -67,6 +74,17 @@ def _served_run(tts, rank):
         tts.close()
 
 
+def _draft_and_stream(tts, stream_tts, model=None):
+    """A one-segment ``generate()`` with a draft under ``parallelism``, and
+    ``stream()``'s pieces of ``SERVED_TEXT``: the waveforms as numpy."""
+    if model is not None:
+        tts._model = stream_tts._model = model
+    one = [np.asarray(tts.generate(QWEN_TEXTS[1]).audio)]
+    pieces = [np.asarray(p.audio) for p in stream_tts.stream(SERVED_TEXT)]
+    assert tts._draft_model is None and stream_tts._draft_model is None  # never loaded
+    return one, pieces
+
+
 def providers_world(rank, n, qtree, cbtree):
     from rho_tts_tpu_torch import from_jax
     from rho_tts_tpu_torch.models.chatterbox import model as tcb
@@ -90,6 +108,9 @@ def providers_world(rank, n, qtree, cbtree):
         m = tts._model
         out[f"qwen_{mode}"] = [r.audio.numpy() for r in res]
         out[f"qwen_{mode}_mesh"] = (m.mesh.shape, m.tp_axis is not None)
+        out[f"qwen_{mode}_draft"], out[f"qwen_{mode}_stream"] = _draft_and_stream(
+            QwenTTS(**QWEN, parallelism=mode, **DRAFT),
+            QwenTTS(**{**QWEN, **STREAM_KW}, parallelism=mode, **DRAFT))
         tts = ChatterboxTTS(**CB, parallelism=mode)
         out[f"cb_{mode}"] = [tts.generate(CB_TEXT).audio.numpy()]
         out[f"cb_{mode}_mesh"] = (tts.model.mesh.shape, tts.model.tp_axis is not None)
@@ -130,6 +151,9 @@ def world(tmp_path_factory):
             tts = QwenTTS(**QWEN, parallelism=mode, n_devices=2)
             tts._model = jm
             ref[f"qwen_{mode}"] = [np.asarray(r.audio) for r in tts.generate(QWEN_TEXTS)]
+            ref[f"qwen_{mode}_draft"], ref[f"qwen_{mode}_stream"] = _draft_and_stream(
+                QwenTTS(**QWEN, parallelism=mode, n_devices=2, **DRAFT),
+                QwenTTS(**{**QWEN, **STREAM_KW}, parallelism=mode, n_devices=2, **DRAFT), jm)
             tts = ChatterboxTTS(**CB, parallelism=mode, n_devices=2)
             cm = jcb.ChatterboxModel(jcb.PRESETS["tiny"], params=cbtree)
             enable_parallelism(cm, mode, 2)
@@ -165,6 +189,22 @@ def test_provider_parallelism_generates_like_jax(world, family, mode):
     assert tensor == (mode == "tensor")
     ours = ranks[0][key]
     assert len(ours) == len(ref[key])
+    for o, r in zip(ours, ref[key]):
+        assert o.shape == r.shape and o.dtype == np.float32
+        np.testing.assert_allclose(o, r, atol=WAV_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["draft", "stream"])
+@pytest.mark.parametrize("mode", MODES)
+def test_provider_parallelism_keeps_jax_routing(world, mode, kind):
+    """``draft``: one segment through the meshed batch, not speculative
+    decoding; ``stream``: three whole segments, not chunks. Within 1e-4 of
+    the JAX provider on its mesh, the same on both ranks."""
+    ranks, ref = world
+    key = f"qwen_{mode}_{kind}"
+    assert_ranks_agree(ranks, key)
+    ours = ranks[0][key]
+    assert len(ours) == len(ref[key]) == (1 if kind == "draft" else 3)
     for o, r in zip(ours, ref[key]):
         assert o.shape == r.shape and o.dtype == np.float32
         np.testing.assert_allclose(o, r, atol=WAV_TOL, rtol=0)

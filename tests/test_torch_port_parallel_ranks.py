@@ -350,10 +350,17 @@ def test_sp_fused_attention_matches_reference_and_jax(worlds, n):
 def test_multihost_dryrun_two_processes():
     """``run_dryrun(2)``: two processes over a coordinator address (gloo
     here), DP decode and the ServingEngine bit-exact against a
-    process-local reference."""
-    from rho_tts_tpu_torch.parallel.multihost_dryrun import run_dryrun
+    process-local reference, and JAX's pipeline-parallel train step (2
+    stages) with the same loss on both processes, its first-step
+    gradients and its step within the dry run's bounds of a process-local
+    unpipelined step."""
+    from rho_tts_tpu_torch.parallel.multihost_dryrun import PP_GRAD_TOL, run_dryrun
 
     reports = run_dryrun(2, timeout=WORLD_TIMEOUT_S)
     assert len(reports) == 2 and all(r.startswith("OK") for r in reports)
     assert "serve=OK" in reports[0] and reports[0].split("checksum=")[1] == \
         reports[1].split("checksum=")[1]
+    assert all(" pp=OK pp_mesh={'data': 1, 'pipe': 2}" in r for r in reports)
+    losses = [r.split("pp_loss=")[1].split()[0] for r in reports]
+    assert losses[0] == losses[1]
+    assert all(float(r.split("pp_grad_error=")[1].split()[0]) <= PP_GRAD_TOL for r in reports)

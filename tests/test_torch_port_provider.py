@@ -197,6 +197,29 @@ def test_unported_options_raise(kw, item, caplog):
         TQwenTTS(device="cpu", model_path="tiny-CustomVoice", parallelism="pipeline")
 
 
+def test_parallelism_routes_a_draft_and_stream_as_jax(models, jax_prefill_kernel,  # noqa: F811
+                                                     monkeypatch):
+    """``parallelism`` set with a draft, in a world of one (no process
+    group: the model stays unmeshed, but the flag is set in both packages):
+    a one-segment ``generate()`` runs the batch and not speculative decoding
+    (JAX ``providers/qwen.py:290``), and ``stream()`` yields whole segments
+    (``:376``): codes identical, audio within 1e-4 of the JAX provider's."""
+    kw = dict(speaker="Aria", model_path="tiny-CustomVoice", parallelism="data",
+              draft_model_path="draft")
+    for model in models:
+        monkeypatch.setattr(model, "synthesize_speculative",
+                            lambda *a, **k: pytest.fail("speculative decode under parallelism"))
+    out, out_ref = _generate_both(models, TEXTS[0], **kw)
+    _assert_results_match([out], [out_ref])
+    ref, ours = _pair(models, **kw)
+    assert ours._stream_audio_chunks(TEXTS[1]) is None
+    assert ref._stream_audio_chunks(TEXTS[1]) is None
+    pieces_ref, pieces = list(ref.stream(TEXTS[1])), list(ours.stream(TEXTS[1]))
+    assert len(pieces) == len(pieces_ref) == 1  # one segment, whole
+    np.testing.assert_allclose(_np(pieces[0].audio), _np(pieces_ref[0].audio), atol=1e-4, rtol=0)
+    assert ours._draft_model is None  # never loaded
+
+
 def test_chatterbox_is_not_ported():
     """The factory's "chatterbox" route builds the port's ``ChatterboxTTS``
     (its parity with the JAX provider is held in
