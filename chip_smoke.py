@@ -91,6 +91,16 @@ Phases, each fatal on failure:
     variant's step timed in a seeded shuffled order, each part logged as
     ``phase 13 <part> (<card>): {...}``. Each kernel's entry gains
     ``launches_sharded_training`` (0: training runs no kernel).
+14. host-only layers (see :func:`run_host_layers_path`): phase 7's int8
+    model through ``TTSFactory``'s isolation route (``ProviderProxy`` and a
+    worker process on the same card, over a venv made by hand), bit-equal
+    to an in-process instance; a cancel and a crash of the worker; a
+    ``profiling.start_trace`` / ``stop_trace`` trace whose kernel events
+    match the launch counters; the UI's callbacks (``AppState``, no
+    gradio): ``generate_audio`` bit-equal to an in-process ``generate``, a
+    switch to int4 that frees the int8 engine's memory; each part logged as
+    ``phase 14 <part> (<card>): {...}``. Each kernel's entry gains
+    ``launches_host_layers``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
@@ -111,8 +121,10 @@ import gc
 import importlib
 import importlib.util
 import json
+import logging
 import math
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -3531,6 +3543,402 @@ def run_sharded_training_path(qmodel, kmods, build_dir: str, smi: str, device: s
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the host-only layers on the card
+# ---------------------------------------------------------------------------
+
+HOST_MODEL_PATH = "Qwen3-TTS-12Hz-1.7B-CustomVoice"  # phase 7's model
+HOST_KW = dict(speaker="Vivian", quantization="int8", min_audio_sec=1000.0)  # EOS masked
+CANCEL_AFTER_S = 1.0
+TRACE_FRAMES = 64  # one decode chunk: a 192-step generate() traces ~1e6 events
+MEM_SLACK_BYTES = 64 << 20
+UI_MODEL_ID, UI_VOICE_ID = "qwen-1.7b-custom", "builtin-vivian"
+
+
+def _fake_venv(venvs, root: str) -> str:
+    """The qwen venv the isolation layer looks for, made by hand (no pip):
+    an interpreter script that runs this interpreter, and a current marker."""
+    py = os.path.join(root, "qwen", "bin", "python")
+    os.makedirs(os.path.dirname(py), exist_ok=True)
+    with open(py, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(py, 0o755)
+    with open(os.path.join(root, "qwen", venvs.MARKER_FILE), "w") as f:
+        f.write(venvs.source_hash())
+    return py
+
+
+@contextlib.contextmanager
+def _isolated_qwen(factory_cls, venvs, root: str, src: str):
+    """``TTSFactory`` as after qwen's ``ImportError`` (qwen served through
+    ``ProviderProxy``), the venvs under ``root``, ``src`` on the workers'
+    ``PYTHONPATH``; all restored after."""
+    factory_cls._register_default_providers()
+    saved = (factory_cls._providers, factory_cls._isolated_providers, venvs.VENVS_ROOT,
+             os.environ.get("PYTHONPATH"))
+    factory_cls._providers = {k: v for k, v in saved[0].items() if k != "qwen"}
+    factory_cls._isolated_providers = set(saved[1]) | {"qwen"}
+    venvs.VENVS_ROOT = pathlib.Path(root)
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (src, saved[3]) if p)
+    try:
+        yield
+    finally:
+        factory_cls._providers, factory_cls._isolated_providers, venvs.VENVS_ROOT = saved[:3]
+        _restore_env("PYTHONPATH", saved[3])
+
+
+def _drive_host_sequence(tts, out_dir: str, device: str, chunked=None) -> dict:
+    """The sequence both instances of part a run: a warm-up
+    ``generate(TEXTS, base)``, a timed one, ``stream(TEXTS[0])``."""
+    tts.generate(TEXTS, os.path.join(out_dir, "warm"))
+    _sync(device)
+    t0 = time.perf_counter()
+    results = tts.generate(TEXTS, os.path.join(out_dir, "out"))
+    _sync(device)
+    wall = time.perf_counter() - t0
+    kw = {} if chunked is None else {"chunked": chunked}
+    t0 = time.perf_counter()
+    segments = list(tts.stream(TEXTS[0], **kw))
+    _sync(device)
+    return {"results": results, "wall_s": wall, "segments": segments,
+            "stream_s": time.perf_counter() - t0}
+
+
+def _compare_host_runs(proxied: dict, local: dict) -> dict:
+    """Part a's checks: WAV bytes, segment counts, durations, streamed segments."""
+    import numpy as np
+
+    from rho_tts_tpu_torch import audio_io
+
+    rp, rl = proxied["results"], local["results"]
+    if not isinstance(rp, list) or len(rp) != len(TEXTS) or None in rp \
+            or not isinstance(rl, list) or len(rl) != len(TEXTS) or None in rl:
+        raise AssertionError(f"phase 14 a: results {rp!r} / {rl!r}")
+    samples = []
+    for i, (p, q) in enumerate(zip(rp, rl)):
+        with open(p.path, "rb") as f:
+            pb = f.read()
+        with open(q.path, "rb") as f:
+            qb = f.read()
+        if pb != qb:
+            a, _ = audio_io.load_wav(p.path)
+            b, _ = audio_io.load_wav(q.path)
+            diff = (np.abs(np.round(a * 32768).astype(np.int64) - np.round(b * 32768)
+                           .astype(np.int64)).max() if a.shape == b.shape else -1)
+            raise AssertionError(f"phase 14 a: item {i}'s WAV differs across processes "
+                                 f"({len(pb)} / {len(qb)} bytes, largest difference "
+                                 f"{diff} int16 LSB)")
+        if (p.segments_count, p.duration_sec) != (q.segments_count, q.duration_sec):
+            raise AssertionError(f"phase 14 a: item {i}: {p} / {q}")
+        samples.append((len(pb) - 44) // 2)
+    sp, sl = proxied["segments"], local["segments"]
+    if len(sp) != len(sl) or not sp:
+        raise AssertionError(f"phase 14 a: {len(sp)} streamed segments, {len(sl)} in process")
+    for i, (p, q) in enumerate(zip(sp, sl)):
+        # the proxy's audio is the WAV's int16 / 32768; the in-process one as saved
+        a = np.round(p.numpy() * 32768.0).astype(np.int64)
+        b = audio_io._to_int16(q.numpy()).astype(np.int64)
+        if a.shape != b.shape or not np.array_equal(a, b) or p.duration_sec != q.duration_sec:
+            d = int(np.abs(a - b).max()) if a.shape == b.shape else -1
+            raise AssertionError(f"phase 14 a: streamed segment {i} differs ({a.shape} / "
+                                 f"{b.shape}, largest difference {d} int16 LSB)")
+    return {"wav_samples": samples, "segments_count": [r.segments_count for r in rp],
+            "streamed_segments": len(sp), "streamed_samples": [int(p.audio.shape[0]) for p in sp],
+            "bit_equal": True}
+
+
+def _count_trace_kernels(path: str) -> dict:
+    """Kernel events of a ``torch.profiler`` trace named after the attention
+    kernels (the bf16 prefill's tensor-core kernel, the decode kernel)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {"prefill_gqa_attention": "tc_prefill_kernel",
+             "decode_gqa_attention": "split_decode_kernel"}
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {k: sum(1 for n in kernels if v in n) for k, v in names.items()}
+    out["kernel_events"] = len(kernels)
+    out["events"] = len(events)
+    return out
+
+
+def _mem(device) -> int:
+    return torch.cuda.memory_allocated() if device == "cuda" else 0
+
+
+def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
+                         device: str = "cuda", model_path: str = HOST_MODEL_PATH,
+                         trace_frames: int = TRACE_FRAMES) -> dict:
+    """Phase 14: the host-only layers driving the card (see the module doc).
+
+    a. ``TTSFactory.get_tts_instance("qwen", ...)`` routed to
+       ``ProviderProxy`` as after an ``ImportError`` of the provider, over a
+       venv made by hand under ``build_dir/phase14`` (no pip): the worker
+       runs phase 7's int8 model in its own process and CUDA context. The
+       same calls on an in-process instance built with the same kwargs: the
+       WAVs, segment counts, durations and streamed segments bit-equal;
+    b. a proxied ``generate`` cancelled after ``CANCEL_AFTER_S`` returns
+       None with the worker alive and serving the next call; then the
+       worker is killed with a request in flight and the proxy gives the
+       JAX package's sequence: a "restarted" error, the restarted worker's
+       "Expected 'init'" (it is sent no ``INIT``), then "not running";
+    c. ``profiling.start_trace`` / ``stop_trace`` around one ``synthesize``
+       of the batch for ``trace_frames`` steps: the written trace names
+       kernels 1 and 2 as often as their launch counters count;
+    d. the UI's callbacks (``AppState``, no gradio) on a temporary config:
+       ``generate_audio`` bit-equal to an in-process ``generate`` with the
+       kwargs ``build_tts_kwargs`` gives, the history saved; a switch to
+       int4 frees the int8 engine's memory (within ``MEM_SLACK_BYTES``) and
+       launches kernel 4.
+    """
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from rho_tts_tpu_torch import CancellationToken, TTSFactory, audio_io
+    from rho_tts_tpu_torch.isolation import ProviderProxy, venvs
+    from rho_tts_tpu_torch.models.qwen.config import resolve_config
+    from rho_tts_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    # The port's defaults, as a fresh worker process runs it: TF32 off for
+    # matmuls, on for cuDNN.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    _free(device)
+    root = os.path.join(build_dir, "phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    for d in ("proxy", "local", "cancel", "ui"):
+        os.makedirs(os.path.join(root, d))
+    kw = dict(HOST_KW, model_path=model_path, device=device)
+    mcfg = resolve_config(model_path)
+    layers = mcfg.talker.layers
+    out = {"card": smi, "model_path": model_path}
+    relay = logging.getLogger("rho_tts_tpu_torch.isolation.procman")  # the worker's stderr
+    relay.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stderr)
+    relay.addHandler(handler)
+
+    # -- a. the factory's isolation route ---------------------------------
+    _fake_venv(venvs, os.path.join(root, "venvs"))
+    with _isolated_qwen(TTSFactory, venvs, os.path.join(root, "venvs"), src):
+        t0 = time.perf_counter()
+        proxy = TTSFactory.get_tts_instance("qwen", **kw)
+        ready_s = time.perf_counter() - t0
+        try:
+            if not isinstance(proxy, ProviderProxy):
+                raise AssertionError(f"phase 14 a: the route gave {type(proxy)}")
+            proxied = _drive_host_sequence(proxy, os.path.join(root, "proxy"), device)
+            t0 = time.perf_counter()
+            alive = proxy.ping()
+            ping_ms = (time.perf_counter() - t0) * 1e3
+            if not alive:
+                raise AssertionError("phase 14 a: the worker did not answer ping()")
+
+            # -- b. cancel, then a crash ----------------------------------
+            token, fired = CancellationToken(), []
+
+            def cancel():
+                fired.append(time.perf_counter())
+                token.cancel()
+
+            timer = threading.Timer(CANCEL_AFTER_S, cancel)
+            timer.start()
+            cancelled = proxy.generate(TEXTS, os.path.join(root, "cancel", "c"),
+                                       cancellation_token=token)
+            t_none = time.perf_counter()
+            timer.join()
+            if cancelled is not None or not fired:
+                raise AssertionError(f"phase 14 b: a cancelled generate gave {cancelled!r}")
+            if not proxy.ping():
+                raise AssertionError("phase 14 b: the worker did not answer after the cancel")
+            after = proxy.generate(TEXTS, os.path.join(root, "cancel", "after"))
+            if not isinstance(after, list) or len(after) != len(TEXTS) or None in after \
+                    or not all(os.path.isfile(r.path) for r in after):
+                raise AssertionError(f"phase 14 b: the generate after the cancel gave {after!r}")
+            # The worker dies with a request in flight: killed as soon as the
+            # frame is written. The proxy restarts it and raises; the new
+            # worker is sent no INIT, so it answers the next request with an
+            # ERROR and exits; a dead worker is then refused before any write.
+            pipe = proxy._worker._pipe
+
+            def write_then_kill(msg_type, **payload):
+                type(pipe).write(pipe, msg_type, **payload)
+                pipe.proc.kill()
+                pipe.proc.wait(timeout=60)
+
+            pipe.write = write_then_kill
+            crash = []
+            for i in range(3):
+                try:
+                    proxy.generate(TEXTS[2], os.path.join(root, "cancel", "crash.wav"))
+                    crash.append(None)
+                except RuntimeError as e:
+                    crash.append(str(e))
+                if i == 1:
+                    restarted = proxy._worker._pipe.proc
+                    restarted.wait(timeout=120)  # it exits after its ERROR
+            want = ("Worker crashed and was restarted", "Worker error: Expected 'init' as first "
+                    "message", "Worker is not running")
+            if not all((e or "").startswith(w) for e, w in zip(crash, want)):
+                raise AssertionError(f"phase 14 b: after the kill the proxy gave {crash}")
+        finally:
+            proxy.close()
+    b = {"cancel_to_none_s": t_none - fired[0], "cancel_after_s": CANCEL_AFTER_S,
+         "ping_after_cancel": True, "files_after_cancel": len(after),
+         "crash_sequence": crash, "restarted_worker_exit": restarted.returncode}
+
+    t0 = time.perf_counter()
+    tts = TTSFactory.get_tts_instance("qwen", **kw)
+    model = tts._load_model()
+    _sync(device)
+    local_init_s = time.perf_counter() - t0
+    local = _drive_host_sequence(tts, os.path.join(root, "local"), device, chunked=False)
+    a = _compare_host_runs(proxied, local)
+    a.update(worker_ready_s=ready_s, proxied_wall_s=proxied["wall_s"],
+             in_process_wall_s=local["wall_s"],
+             isolation_cost_s=proxied["wall_s"] - local["wall_s"],
+             proxied_stream_s=proxied["stream_s"], in_process_stream_s=local["stream_s"],
+             in_process_init_s=local_init_s, ping_ms=ping_ms)
+    out["a_isolation"] = a
+    log(f"phase 14 a_isolation ({smi}): {json.dumps(a)}")
+    out["b_cancel_crash"] = b
+    log(f"phase 14 b_cancel_crash ({smi}): {json.dumps(b)}")
+
+    # -- c. a profiler trace ----------------------------------------------
+    trace_dir = os.path.join(root, "trace")
+    syn = dict(speaker="Vivian", min_frames=trace_frames, max_frames=trace_frames, top_k=50,
+               seeds=list(range(len(TEXTS))))
+    _zero(kmods)
+    if not profiling.start_trace(trace_dir) or profiling.start_trace(trace_dir):
+        raise AssertionError("phase 14 c: start_trace did not start exactly one trace")
+    try:
+        waves, _sr = model.synthesize(TEXTS, **syn)
+        _sync(device)
+    finally:
+        t0 = time.perf_counter()
+        profiling.stop_trace()
+        stop_s = time.perf_counter() - t0
+    launches_c = _launches(kmods)
+    traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)
+              if n.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"phase 14 c: {len(traces)} trace files under {trace_dir}")
+    t0 = time.perf_counter()
+    counted = _count_trace_kernels(traces[0])
+    c = {"frames": trace_frames, "trace_bytes": os.path.getsize(traces[0]),
+         "stop_trace_s": stop_s, "parse_s": time.perf_counter() - t0, "launches": launches_c,
+         "trace_counts": counted}
+    steps = -(-trace_frames // qmodel._chunk()) * qmodel._chunk()  # whole decode chunks
+    c["decode_steps"] = steps
+    want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps}
+    for name, n in want.items():
+        if launches_c[name] != n or (device == "cuda" and counted[name] != n):
+            raise AssertionError(f"phase 14 c: {name} launched {launches_c[name]} times, "
+                                 f"{counted[name]} in the trace, expected {n}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    out["c_trace"] = c
+    log(f"phase 14 c_trace ({smi}): {json.dumps(c)}")
+    del waves, model
+    tts.close()
+    del tts, local, proxied
+
+    # -- d. the UI's callbacks --------------------------------------------
+    from rho_tts_tpu_torch.ui import callbacks as cb
+    from rho_tts_tpu_torch.ui import config as cfgmod
+    from rho_tts_tpu_torch.ui.state import AppState
+
+    ui_dir = os.path.join(root, "ui")
+    saved_env = {k: os.environ.get(k) for k in (cfgmod.CONFIG_ENV, cfgmod.HISTORY_ENV)}
+    os.environ[cfgmod.CONFIG_ENV] = os.path.join(ui_dir, "config.json")
+    os.environ[cfgmod.HISTORY_ENV] = os.path.join(ui_dir, "history.json")
+    try:
+        cfg = cfgmod.AppConfig()
+        cfg.models = [m for m in cfg.models if m.id == UI_MODEL_ID]
+        cfg.voices = [v for v in cfg.voices if v.id == UI_VOICE_ID]
+        if model_path != HOST_MODEL_PATH:  # a rehearsal at another size
+            cfg.models[0].model_path = model_path
+        cfgmod.save_config(cfg)
+        state = AppState()
+        status = [cb.set_model_serving(state, UI_MODEL_ID, "int8", "none")]
+        params = cb.load_parameters(state, UI_VOICE_ID, UI_MODEL_ID)
+        params.update(max_iterations=1, min_audio_sec=HOST_KW["min_audio_sec"])
+        if device != "cuda":
+            params["device"] = device
+        status.append(cb.save_parameters(state, UI_VOICE_ID, UI_MODEL_ID, params))
+        if not all(s.startswith("✅") for s in status):
+            raise AssertionError(f"phase 14 d: {status}")
+        _free(device)
+        mem0 = _mem(device)
+
+        def click(tag):
+            _zero(kmods)
+            t0 = time.perf_counter()
+            updates = list(cb.generate_audio(state, UI_MODEL_ID, UI_VOICE_ID, TEXTS[0],
+                                             output_dir=os.path.join(ui_dir, tag)))
+            _sync(device)
+            wall = time.perf_counter() - t0
+            path, msg = updates[-1]
+            if not path or not msg.startswith("✅") or not os.path.isfile(path):
+                raise AssertionError(f"phase 14 d {tag}: generate_audio ended with {updates[-1]}")
+            return path, wall, _launches(kmods)
+
+        path8, wall8, launches8 = click("int8")
+        mem_int8 = _mem(device)
+        with open(os.environ[cfgmod.HISTORY_ENV]) as f:
+            history = json.load(f)
+        if len(history) != 1 or history[0]["output_path"] != path8:
+            raise AssertionError(f"phase 14 d: history on disk {history}")
+        kwargs = state.build_tts_kwargs(state.config.get_model(UI_MODEL_ID),
+                                        state.config.get_voice(UI_VOICE_ID))
+        ref = TTSFactory.get_tts_instance("qwen", **kwargs)
+        ref_path = os.path.join(ui_dir, "in_process.wav")
+        ref.generate(TEXTS[0], ref_path)
+        ref.close()
+        del ref
+        with open(path8, "rb") as f, open(ref_path, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("phase 14 d: the UI's WAV differs from an in-process "
+                                     "generate with build_tts_kwargs' kwargs")
+        status = cb.set_model_serving(state, UI_MODEL_ID, "int4", "none")
+        mem_switched = _mem(device)
+        if not status.startswith("✅") or abs(mem_switched - mem0) > MEM_SLACK_BYTES:
+            raise AssertionError(f"phase 14 d: {status}; memory {mem0} B before the first "
+                                 f"engine, {mem_switched} B after the switch's close")
+        path4, wall4, launches4 = click("int4")
+        mem_int4 = _mem(device)
+        state.invalidate_tts()
+        _free(device)
+        mem_end = _mem(device)
+        if launches4["int4_matmul"] == 0 or launches8["int4_matmul"] != 0 \
+                or launches4["decode_gqa_attention"] != launches8["decode_gqa_attention"] \
+                or launches4["prefill_gqa_attention"] != launches8["prefill_gqa_attention"]:
+            raise AssertionError(f"phase 14 d: launches int8 {launches8}, int4 {launches4}")
+        w8, _ = audio_io.load_wav(path8)
+        w4, _ = audio_io.load_wav(path4)
+        steps = launches8["decode_gqa_attention"] // layers
+        for tag, w in (("int8", w8), ("int4", w4)):
+            if not 0 < w.shape[0] <= (steps + 1) * mcfg.codec.hop or not np.isfinite(w).all():
+                raise AssertionError(f"phase 14 d {tag}: {w.shape[0]} samples for {steps} steps")
+        d = {"walls_s": {"int8": wall8, "int4": wall4}, "decode_steps": steps,
+             "samples": {"int8": int(w8.shape[0]), "int4": int(w4.shape[0])},
+             "memory_bytes": {"before": mem0, "int8_engine": mem_int8, "after_switch": mem_switched,
+                              "int4_engine": mem_int4, "after_close": mem_end},
+             "launches": {"int8": launches8, "int4": launches4}, "bit_equal_in_process": True,
+             "history_saved": True}
+    finally:
+        for k, v in saved_env.items():
+            _restore_env(k, v)
+    out["d_ui"] = d
+    log(f"phase 14 d_ui ({smi}): {json.dumps(d)}")
+    relay.removeHandler(handler)
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {name: {"c_trace": launches_c[name], "d_ui_int8": launches8[name],
+                              "d_ui_int4": launches4[name]} for name in kmods}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _free(device):
     gc.collect()
     if device == "cuda":
@@ -3643,6 +4051,8 @@ def main(argv=None) -> int:
     sharded_path = run_sharded_training_path(qmodel, kmods, build_dir, smi)
     log(f"phase 13 sharded training: every part passed in {sharded_path['wall_s']:.1f} s, "
         f"peak {sharded_path['e_walls']['peak_gb']:.2f} GB")
+    host_path = run_host_layers_path(qmodel, kmods, build_dir, smi, src)
+    log(f"phase 14 host layers: every part passed in {host_path['wall_s']:.1f} s")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -3681,6 +4091,7 @@ def main(argv=None) -> int:
             "d_chatterbox_tp": mesh_path["d_chatterbox"]["tp_mesh_of_one"]["launches"][k["name"]]}
         k["per_rank_cases"] = mesh_path["e_per_rank"][k["name"]]
         k["launches_sharded_training"] = sharded_path["launches"][k["name"]]
+        k["launches_host_layers"] = host_path["launches"][k["name"]]
         if not any(k["launches_parallel"].values()):
             raise AssertionError(f"phase 12: {k['name']} was launched no time on the mesh path")
 

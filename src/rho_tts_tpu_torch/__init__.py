@@ -13,7 +13,10 @@ Chatterbox family (``ChatterboxTTS``: CFG-pair decode, voice cloning, the
 on-device watermark, candidates and CFG-pair serving); and hand-written
 CUDA kernels for every kernel of the JAX package: prefill and decode
 attention, the w8a8 matmul and the int4 matmul (``csrc/``, bound in
-``ops/cuda/``).
+``ops/cuda/``). Around them, the host-only layers: subprocess isolation
+(``isolation/``, the factory's route for a built-in whose dependencies
+do not import), the Gradio web UI (``ui/``, :func:`launch_ui`), profiler
+traces (``utils.profiling.start_trace``) and :func:`train_drift_classifier`.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``.
 
@@ -71,4 +74,40 @@ __all__ = [
     "AudioGenerationError",
     "FormatConversionError",
     "__version__",
+    "launch_ui",
+    "train_drift_classifier",
 ]
+
+
+def launch_ui(**kwargs):
+    """Launch the Gradio web UI. Requires the ``ui`` extra (gradio)."""
+    from .ui import launch_ui as _launch_ui
+
+    _launch_ui(**kwargs)
+
+
+def train_drift_classifier(
+    dataset_dir: str,
+    voice_id: str | None = None,
+    output_path: str | None = None,
+    progress_callback=None,
+):
+    """Train a drift-detection classifier from a good/ + bad/ dataset dir.
+
+    Args:
+        dataset_dir: Directory containing 'good/' and 'bad/' subdirectories
+            of .wav files.
+        voice_id: Voice ID to associate with this model (per-voice store).
+        output_path: Explicit path for the trained model.
+        progress_callback: Optional callable receiving progress messages.
+
+    Features are extracted on the GPU (the trainer's default device).
+    """
+    from .validation.classifier.trainer import train
+
+    return train(
+        dataset_dir=dataset_dir,
+        voice_id=voice_id,
+        output_path=output_path,
+        progress_callback=progress_callback,
+    )

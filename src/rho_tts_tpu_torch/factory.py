@@ -7,12 +7,11 @@ precedence order:
 2. built-in providers: ``qwen`` (:class:`rho_tts_tpu_torch.providers.qwen.QwenTTS`)
    and ``chatterbox``
    (:class:`rho_tts_tpu_torch.providers.chatterbox.ChatterboxTTS`), registered
-   lazily on first use,
+   lazily on first use — a built-in whose dependencies are unimportable is
+   served through the subprocess isolation layer instead
+   (:class:`rho_tts_tpu_torch.isolation.ProviderProxy`),
 3. ``rho_tts_tpu_torch.providers`` entry points (third-party plugin
    packages).
-
-The JAX package's route to its subprocess isolation layer is not ported
-yet (ROADMAP queue 1 item 13), and nothing falls back to it.
 
 Capability parity: reference ``src/rho_tts/factory.py:43-176``.
 """
@@ -20,7 +19,7 @@ Capability parity: reference ``src/rho_tts/factory.py:43-176``.
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Tuple, Type
+from typing import Dict, List, Set, Tuple, Type
 
 from .engine import BaseTTS
 from .exceptions import ProviderNotFoundError
@@ -35,18 +34,54 @@ _BUILTINS: Dict[str, Tuple[str, str]] = {
 }
 
 
+def _builtin_voice_catalog() -> List[VoiceInfo]:
+    return [
+        VoiceInfo(id=n, name=n, language="English")
+        for n in (
+            "Chelsie",
+            "Aidan",
+            "Vivian",
+            "Ryan",
+            "Aria",
+            "Ethan",
+            "Luna",
+            "Harper",
+            "James",
+        )
+    ]
+
+
+#: Static metadata for isolated providers — answers metadata queries
+#: without spinning up a subprocess.
+_STATIC_PROVIDER_INFO: Dict[str, ProviderInfo] = {
+    "qwen": ProviderInfo(
+        name="qwen",
+        supports_voice_cloning=True,
+        supported_languages=["English", "Chinese", "Japanese", "Korean"],
+        builtin_voices=_builtin_voice_catalog(),
+    ),
+    "chatterbox": ProviderInfo(
+        name="chatterbox",
+        supports_voice_cloning=True,
+        supported_languages=["English"],
+        builtin_voices=[VoiceInfo(id="default", name="Default", language="English")],
+    ),
+}
+
+
 class TTSFactory:
     """Provider registry facade (state is class-level by design: provider
     registration is process-global, and tests snapshot/restore it)."""
 
     _providers: Dict[str, Type[BaseTTS]] = {}
+    _isolated_providers: Set[str] = set()
     _default_providers_registered = False
 
     # -- Bootstrap ------------------------------------------------------------
 
     @classmethod
     def _register_default_providers(cls) -> None:
-        """Import the built-ins and load plugins."""
+        """Import built-ins (routing failures to isolation) + load plugins."""
         if cls._default_providers_registered:
             return
         cls._default_providers_registered = True
@@ -54,8 +89,13 @@ class TTSFactory:
         import importlib
 
         for name, (module, attr) in _BUILTINS.items():
-            if name not in cls._providers:
+            if name in cls._providers:
+                continue
+            try:
                 cls._providers[name] = getattr(importlib.import_module(module), attr)
+            except ImportError:
+                logger.info("Provider '%s' deps unavailable — will use isolated venv", name)
+                cls._isolated_providers.add(name)
 
         cls._load_plugins()
 
@@ -80,7 +120,7 @@ class TTSFactory:
 
     @classmethod
     def get_tts_instance(cls, provider: str = "qwen", **kwargs) -> BaseTTS:
-        """Build a provider instance.
+        """Build a provider instance (or an isolation proxy for it).
 
         Raises:
             ProviderNotFoundError: for unknown provider names.
@@ -90,6 +130,11 @@ class TTSFactory:
         provider_cls = cls._providers.get(provider)
         if provider_cls is not None:
             return provider_cls(**kwargs)
+
+        if provider in cls._isolated_providers:
+            from .isolation import ProviderProxy
+
+            return ProviderProxy(provider, **kwargs)
 
         raise ProviderNotFoundError(
             f"Unknown TTS provider: '{provider}'. "
@@ -112,9 +157,9 @@ class TTSFactory:
 
     @classmethod
     def list_providers(cls) -> List[str]:
-        """All registered provider names."""
+        """All known provider names, direct and isolated."""
         cls._register_default_providers()
-        return sorted(cls._providers)
+        return sorted(set(cls._providers) | cls._isolated_providers)
 
     @classmethod
     def get_provider_info(cls, provider: str) -> ProviderInfo:
@@ -127,6 +172,9 @@ class TTSFactory:
 
         if provider in cls._providers:
             return cls._providers[provider].provider_info()
+        if provider in cls._isolated_providers:
+            return _STATIC_PROVIDER_INFO.get(provider, ProviderInfo(name=provider))
+
         raise ProviderNotFoundError(
             f"Unknown TTS provider: '{provider}'. "
             f"Available providers: {', '.join(cls.list_providers()) or '(none)'}."
