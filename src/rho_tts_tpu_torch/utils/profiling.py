@@ -87,7 +87,8 @@ def start_trace(log_dir: Optional[str] = None) -> bool:
 
 
 def stop_trace() -> None:
-    """Stop the active trace and write it; nothing without one."""
+    """Stop the active trace and write it; nothing without one. The profiler
+    is off afterwards even when stopping or writing fails."""
     global _trace
     if _trace is None:
         return
@@ -96,3 +97,12 @@ def stop_trace() -> None:
         prof.stop()
     except Exception as e:  # noqa: BLE001
         logger.warning("Could not write profiler trace: %s", e)
+        # torch's stop synchronizes the session's device before it disables
+        # the profiler. When that raises (a CUDA activity without a usable
+        # device) the profiler stays on and records every later op of the
+        # process, each with a failed device event: exit again without the
+        # device.
+        inner = prof.profiler
+        if inner is not None and torch.autograd.profiler._is_profiler_enabled:
+            inner.use_device = None
+            inner.__exit__(None, None, None)

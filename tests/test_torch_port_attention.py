@@ -17,6 +17,8 @@ from rho_tts_tpu.ops.pallas import decode_attention as jdec
 from rho_tts_tpu_torch.ops.cuda import attention as tattn
 from rho_tts_tpu_torch.ops.cuda import decode_attention as tdec
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 
 def _left_padded_mask(b, s, pads):
     return np.stack([np.arange(s) >= pads[i % len(pads)] for i in range(b)])

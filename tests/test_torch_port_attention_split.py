@@ -28,6 +28,8 @@ from rho_tts_tpu.ops.pallas import decode_attention as jdec
 from rho_tts_tpu_torch.ops.cuda import attention as tattn
 from rho_tts_tpu_torch.ops.cuda import decode_attention as tdec
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 _FILL = -1e30
 
 

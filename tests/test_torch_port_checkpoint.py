@@ -30,6 +30,8 @@ from rho_tts_tpu_torch.models.qwen import PRESETS as TPRESETS
 from rho_tts_tpu_torch.models.qwen import export as texport
 from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 TEXTS = ["checkpoint parity", "a second row"]
 GEN = dict(speaker="Aria", min_frames=6, max_frames=24, top_k=1, seeds=[0, 1])
 

@@ -19,6 +19,8 @@ from rho_tts_tpu_torch import from_jax
 from rho_tts_tpu_torch.models.qwen import codec as tcodec
 from rho_tts_tpu_torch.models.qwen.config import PRESETS as TPRESETS
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 
 @pytest.fixture(scope="module")
 def codec_pair():

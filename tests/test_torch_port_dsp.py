@@ -44,6 +44,8 @@ from rho_tts_tpu_torch.ops import resample as tresample
 from rho_tts_tpu_torch.ops import spectral as tspectral
 from test_pitch_speed_oracle import np_pitch_shift as direct_pitch_oracle
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 SR = 24000
 
 

@@ -32,6 +32,8 @@ from rho_tts_tpu_torch.ops import dsp as tdsp
 from rho_tts_tpu_torch.ops import pitch as tpitch
 from test_torch_port_dsp import pitch_shift_f64
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 SR = 8000
 
 PACKAGES = {"jax": SimpleNamespace(pkg=rho_tts_tpu), "port": SimpleNamespace(pkg=rho_tts_tpu_torch)}

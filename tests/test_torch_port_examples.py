@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel_ranks import start_world
+from test_torch_port_parallel_ranks import reap_worlds, start_world  # noqa: F401 — fixture
 
 torch.set_num_threads(1)  # several test workers share the cores
 

@@ -14,6 +14,10 @@ The same inputs go through ``rho_tts_tpu.isolation`` and
   info, field by field equal to the JAX package's;
 * the restart-without-``INIT`` sequence of a crashed worker (the restarted
   worker is never sent ``INIT``), equal in both packages over fake pipes.
+
+Every wait on a thread here (a worker loop, the cancel forwarder, an event
+loop's executor) runs under ``within`` of ``test_torch_port_parallel_ranks``
+and fails after ``WAIT_S``.
 """
 
 import io
@@ -44,6 +48,9 @@ from rho_tts_tpu_torch import factory as tfactory
 from rho_tts_tpu_torch.cancellation import CancellationToken
 from rho_tts_tpu_torch.exceptions import ModelLoadError
 from rho_tts_tpu_torch.result import GenerationResult as TResult
+from test_torch_port_parallel_ranks import within
+
+torch.set_num_threads(1)  # several test workers share the cores
 
 PACKAGES = {
     "jax": dict(P=JP, worker=jworker, procman=jprocman, proxy=jproxy, venvs=jvenvs,
@@ -222,10 +229,7 @@ def _run_worker(pkg, scenario, tmp):
             factory.get_tts_instance.side_effect = RuntimeError("no device")
         else:
             factory.get_tts_instance.return_value = _fake_tts(pkg, scenario, gate)
-        th = threading.Thread(target=parts["worker"].Worker().run, daemon=True)
-        th.start()
-        th.join(WAIT_S)
-        assert not th.is_alive(), f"{pkg} worker loop did not end"
+        within(parts["worker"].Worker().run, WAIT_S)
     tts_calls = factory.get_tts_instance.call_args_list
     return [json.loads(line) for line in stdout.getvalue().splitlines()], tts_calls
 
@@ -484,7 +488,8 @@ def test_proxy_cancel_forwarder_sends_cancel():
         return {"type": "cancelled"}
 
     worker.send.side_effect = slow_generate
-    assert proxy.generate("x", "/tmp/x.wav", cancellation_token=token) is None
+    assert within(lambda: proxy.generate("x", "/tmp/x.wav", cancellation_token=token),
+                  WAIT_S) is None
     worker.send_cancel.assert_called()
 
 
@@ -520,7 +525,7 @@ def test_proxy_lifecycle_and_async():
     async def run():
         return await proxy.async_generate("hi", "/tmp/a.wav")
 
-    assert asyncio.run(run()).path == "/tmp/a.wav"
+    assert within(lambda: asyncio.run(run()), WAIT_S).path == "/tmp/a.wav"
     with proxy:
         pass
     proxy.shutdown()

@@ -14,15 +14,16 @@ JAX provider's in-process waveforms on the same weights (its prefill
 through the Pallas kernel in interpret mode, as in
 ``test_torch_port_provider.py``).
 
-Every blocking call on a worker runs under :func:`_within`, which kills
-the worker and fails after ``CALL_TIMEOUT_S``: a hung worker fails here
-and does not stall the suite.
+Every blocking call on a worker runs under :func:`_within` (the shared
+``within`` of ``test_torch_port_parallel_ranks``), which kills the worker
+and fails after ``CALL_TIMEOUT_S``: a hung worker fails here and does not
+stall the suite. Every worker the module spawns is reaped by its end; one
+still running then is killed, and the module fails.
 """
 
 import os
 import sys
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -32,10 +33,11 @@ from rho_tts_tpu.models.qwen import PRESETS as JPRESETS
 from rho_tts_tpu.models.qwen.model import QwenTTSModel as JModel
 from rho_tts_tpu.providers.qwen import QwenTTS as JQwenTTS
 from rho_tts_tpu_torch import CancellationToken, audio_io, from_jax
-from rho_tts_tpu_torch.isolation import ProviderProxy, venvs
+from rho_tts_tpu_torch.isolation import ProviderProxy, procman, venvs
 from rho_tts_tpu_torch.models.qwen import PRESETS as TPRESETS
 from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
 from rho_tts_tpu_torch.providers.qwen import QwenTTS as TQwenTTS
+from test_torch_port_parallel_ranks import REAP_S, within
 from test_torch_port_slice import fp32_params, jax_prefill_kernel  # noqa: F401 — fixtures
 
 torch.set_num_threads(1)  # several test workers share the cores
@@ -49,26 +51,13 @@ LSB = 1.0 / 32768
 
 
 def _within(fn, proxy=None, timeout=CALL_TIMEOUT_S):
-    """``fn()`` on a thread; past ``timeout`` the worker is killed and the test fails."""
-    box = {}
-
-    def run():
-        try:
-            box["out"] = fn()
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            box["err"] = e
-
-    th = threading.Thread(target=run, daemon=True)
-    th.start()
-    th.join(timeout)
-    if th.is_alive():
+    """``within(fn, timeout)``; past the limit the proxy's worker is killed."""
+    def kill():
         worker = getattr(proxy, "_worker", None)
         if worker is not None and worker._pipe is not None:
             worker._pipe.proc.kill()
-        pytest.fail(f"a worker call ran past {timeout} s")
-    if "err" in box:
-        raise box["err"]
-    return box.get("out")
+
+    return within(fn, timeout, kill)
 
 
 def _fake_venv(root):
@@ -96,6 +85,15 @@ def env(fp32_params, tmp_path_factory):  # noqa: F811
     _fake_venv(str(root / "venvs"))
     mp = pytest.MonkeyPatch()
     mp.setattr(venvs, "VENVS_ROOT", root / "venvs")
+    spawned = []
+
+    def tracked_spawn(python_path):
+        pipe = real_spawn(python_path)
+        spawned.append(pipe.proc)
+        return pipe
+
+    real_spawn = procman._spawn
+    mp.setattr(procman, "_spawn", tracked_spawn)
     mp.setenv("PYTHONPATH", os.pathsep.join(p for p in (SRC, os.environ.get("PYTHONPATH"))
                                             if p))
     # one intra-op thread in the worker too: the CPU's sums then run in this
@@ -103,6 +101,12 @@ def env(fp32_params, tmp_path_factory):  # noqa: F811
     mp.setenv("OMP_NUM_THREADS", "1")
     yield {"root": root, "ckpt": ckpt, "jm": jm}
     mp.undo()
+    left = [proc.pid for proc in spawned if proc.poll() is None]
+    for proc in spawned:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(REAP_S)
+    assert spawned and not left, f"workers {left} outlived the module, killed"
 
 
 @pytest.fixture(scope="module")

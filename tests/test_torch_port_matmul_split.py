@@ -33,6 +33,8 @@ from rho_tts_tpu_torch.ops.cuda import _build
 from rho_tts_tpu_torch.ops.cuda import int4_matmul as ti4
 from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as tw8
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 SMS = 132  # the H100's streaming multiprocessors
 SMEM = 232_448  # bytes of shared memory a block may use on the H100
 DECODE_SHAPES = [(2048, 6144), (6144, 2048), (2048, 4096), (2048, 2048)]  # (K, N) at 1.7B

@@ -10,7 +10,14 @@
   ``flax``, ``orbax``) and none of ``rho_tts_tpu`` as a package anywhere
   under ``src/rho_tts_tpu_torch/``, in ``chip_smoke.py`` or in
   ``examples/torch/``;
-* the console script ``rho-tts-tpu-torch-ui`` names the port's UI.
+* the console script ``rho-tts-tpu-torch-ui`` names the port's UI;
+* every port test file bounds its waits: one that imports torch pins torch
+  to one intra-op thread at import (or through the module-scoped
+  ``one_torch_thread`` fixture), and each call that starts a child process
+  passes a ``timeout=`` (children start through ``subprocess.run``,
+  ``start_world`` or ``run_dryrun``; a bare ``Popen`` or ``Process`` has no
+  bound and is refused). A file that imports no torch (a pure scan, as this
+  one) needs no pin.
 """
 
 import ast
@@ -120,3 +127,87 @@ def test_console_script_names_the_ports_ui():
     from rho_tts_tpu_torch.ui import main
 
     assert callable(main)
+
+
+# ---------------------------------------------------------------------------
+# The port's test files bound their waits
+# ---------------------------------------------------------------------------
+
+PIN = "torch.set_num_threads(1)"
+#: calls that start a child process: each must pass ``timeout=``
+CHILD_STARTS = {"run", "call", "check_call", "check_output", "Popen", "Process", "spawn",
+                "start_processes", "start_world", "run_dryrun"}
+SUBPROCESS_ONLY = {"run", "call", "check_call", "check_output"}  # as ``subprocess.<name>``
+
+
+def _call_name(node):
+    """(owner, name) of a call: ``subprocess.run(...)`` -> ("subprocess", "run")."""
+    f = node.func
+    if isinstance(f, ast.Attribute):
+        return getattr(f.value, "id", None), f.attr
+    return None, getattr(f, "id", None)
+
+
+def _world_internals(tree):
+    """The nodes inside ``World``, the one place that starts ranks (bounded by
+    ``World.join`` and ``reap_worlds``)."""
+    return {id(n) for c in tree.body if isinstance(c, ast.ClassDef) and c.name == "World"
+            for n in ast.walk(c)}
+
+
+def unbounded_waits(path):
+    """What ``path`` does that can wait past the suite's clock: a torch
+    import without the thread pin, a child start without ``timeout=``."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    problems = []
+    imports_torch = any(name.split(".")[0] == "torch" for _, name in _imports(path))
+    pinned = any(isinstance(n, ast.Expr) and ast.unparse(n) == PIN for n in tree.body)
+    fixture = any(isinstance(n, (ast.ImportFrom, ast.FunctionDef)) and "one_torch_thread" in
+                  ast.unparse(n) for n in tree.body)
+    if imports_torch and not (pinned or fixture):
+        problems.append("imports torch without `torch.set_num_threads(1)` at import")
+    inside_world = _world_internals(tree)
+    for node in sorted(ast.walk(tree), key=lambda n: getattr(n, "lineno", 0)):
+        if not isinstance(node, ast.Call) or id(node) in inside_world:
+            continue
+        owner, name = _call_name(node)
+        if name not in CHILD_STARTS or (name in SUBPROCESS_ONLY and owner != "subprocess"):
+            continue
+        if name in ("Popen", "Process", "spawn", "start_processes") or \
+                not any(k.arg == "timeout" for k in node.keywords):
+            problems.append(f"line {node.lineno}: {name}() starts a child with no timeout")
+    return problems
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "tests").glob("test_torch_port_*.py")),
+                         ids=lambda p: p.name)
+def test_port_test_files_bound_their_waits(path):
+    assert unbounded_waits(path) == []
+
+
+def test_the_wait_scan_sees_what_it_must_refuse(tmp_path):
+    bad = tmp_path / "test_torch_port_probe.py"
+    bad.write_text("import subprocess\nimport multiprocessing as mp\nimport torch\n"
+                   "from test_torch_port_parallel_ranks import start_world\n\n"
+                   "def test_x(tmp_path):\n"
+                   "    subprocess.run(['true'])\n"
+                   "    subprocess.Popen(['true'])\n"
+                   "    mp.Process(target=print).start()\n"
+                   "    start_world(tmp_path, 2, print)\n"
+                   "    subprocess.run(['true'], timeout=5)\n"
+                   "    start_world(tmp_path, 2, print, timeout=60)\n"
+                   "    ','.join(['a']); run(1); Process\n")
+    assert unbounded_waits(bad) == [
+        "imports torch without `torch.set_num_threads(1)` at import",
+        "line 7: run() starts a child with no timeout",
+        "line 8: Popen() starts a child with no timeout",
+        "line 9: Process() starts a child with no timeout",
+        "line 10: start_world() starts a child with no timeout",
+    ]
+    good = tmp_path / "test_torch_port_good.py"
+    good.write_text("import torch\n\ntorch.set_num_threads(1)  # shared cores\n")
+    assert unbounded_waits(good) == []
+    fixture = tmp_path / "test_torch_port_fixture.py"
+    fixture.write_text("import torch\n"
+                       "from test_torch_port_features import one_torch_thread  # noqa: F401\n")
+    assert unbounded_waits(fixture) == []

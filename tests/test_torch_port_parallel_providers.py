@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel_ranks import assert_ranks_agree, start_world
+from test_torch_port_parallel_ranks import (WORLD_TIMEOUT_S, assert_ranks_agree,
+                                            reap_worlds, start_world)  # noqa: F401 — fixture
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -142,7 +143,8 @@ def world(tmp_path_factory):
     jax.clear_caches()
     qtree, cbtree = fp32_tree("tiny", 0), cb_fp32_tree(0)
     ranks = start_world(tmp_path_factory.mktemp("providers"), 2, providers_world,
-                        jax.tree.map(np.asarray, qtree), jax.tree.map(np.asarray, cbtree))
+                        jax.tree.map(np.asarray, qtree), jax.tree.map(np.asarray, cbtree),
+                        timeout=WORLD_TIMEOUT_S)
     ref = {}
     try:
         for mode in MODES:

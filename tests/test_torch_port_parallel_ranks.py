@@ -17,12 +17,15 @@ through the Pallas kernel in interpret mode.
   model's; ``sp_fused_gqa_attention`` equals the plain attention within
   2e-5 on the rows that have a valid key, and JAX's wrapper.
 
-The world helper (:func:`start_world`) is shared by
-``test_torch_port_parallel_serving.py`` and ``_providers.py``. This module
-imports no JAX at the top: the ranks import it to find their functions.
+The port's tests bound every wait through this module's two helpers:
+:func:`start_world` (with :class:`World` and the :func:`reap_worlds`
+fixture) for child processes and :func:`within` for a call that could
+block. This module imports no JAX at the top: the ranks import it to find
+their functions.
 """
 
 import os
+import threading
 import time
 from pathlib import Path
 
@@ -42,8 +45,35 @@ WORLD_TIMEOUT_S = 300  # a world that hangs fails here, not at the suite's clock
 
 
 # ---------------------------------------------------------------------------
-# The world helper
+# The bounded-wait helpers
 # ---------------------------------------------------------------------------
+
+REAP_S = 30  # a killed child is reaped within this
+
+
+def within(fn, timeout: float, on_timeout=None):
+    """``fn()`` on a daemon thread, its result or its exception. Past
+    ``timeout`` s, ``on_timeout()`` runs (it kills what ``fn`` waits on) and
+    the test fails naming ``fn``: a call that blocks fails here, not at the
+    suite's clock."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True, name="within")
+    th.start()
+    th.join(timeout)
+    if th.is_alive():
+        if on_timeout is not None:
+            on_timeout()
+        pytest.fail(f"{getattr(fn, '__qualname__', fn)} ran past {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box.get("out")
 
 
 def _rank_main(rank, n, tmp, fn, args):
@@ -58,6 +88,10 @@ def _rank_main(rank, n, tmp, fn, args):
     mesh.shutdown_distributed()
 
 
+#: worlds started and not yet joined; :func:`reap_worlds` kills what is left
+_LIVE_WORLDS = []
+
+
 class World:
     """A spawned gloo world running ``fn`` in every rank (see :func:`start_world`)."""
 
@@ -67,8 +101,26 @@ class World:
         self.tmp, self.n, self.timeout = tmp, n, timeout
         tmp.mkdir(parents=True, exist_ok=True)
         self.t0 = time.monotonic()
-        self.ctx = mp.start_processes(_rank_main, args=(n, str(tmp), fn, args), nprocs=n,
-                                      join=False, start_method="spawn")
+        saved = os.environ.get("OMP_NUM_THREADS")
+        os.environ["OMP_NUM_THREADS"] = "1"  # the ranks inherit one OpenMP thread
+        try:
+            self.ctx = mp.start_processes(_rank_main, args=(n, str(tmp), fn, args), nprocs=n,
+                                          join=False, start_method="spawn")
+        finally:
+            if saved is None:
+                del os.environ["OMP_NUM_THREADS"]
+            else:
+                os.environ["OMP_NUM_THREADS"] = saved
+        _LIVE_WORLDS.append(self)
+
+    def kill(self) -> bool:
+        """Kill and reap every rank; True when one was still running."""
+        alive = [p for p in self.ctx.processes if p.is_alive()]
+        for p in alive:
+            p.kill()
+        for p in self.ctx.processes:
+            p.join(REAP_S)
+        return bool(alive)
 
     def join(self):
         """Each rank's result, in rank order. A rank that raised or died
@@ -79,20 +131,43 @@ class World:
                     raise TimeoutError(
                         f"a world of {self.n} ranks ran past {self.timeout} s")
         finally:
-            for p in self.ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
+            self.kill()
+            _LIVE_WORLDS.remove(self)
         return [torch.load(self.tmp / f"rank{r}.pt", weights_only=False)
                 for r in range(self.n)]
 
 
-def start_world(tmp_path: Path, n: int, fn, *args, timeout: float = WORLD_TIMEOUT_S) -> World:
+def start_world(tmp_path: Path, n: int, fn, *args, timeout: float) -> World:
     """Start ``n`` gloo ranks, each running ``fn(rank, n, *args)`` (a
     module-level function) after its process group is up; collect with
     :meth:`World.join`. The parent is free meanwhile (the JAX side runs
-    there)."""
+    there). ``timeout`` bounds the world (``WORLD_TIMEOUT_S`` as a rule); a
+    module that starts worlds imports :func:`reap_worlds`."""
     return World(Path(tmp_path), n, fn, args, timeout)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reap_worlds():
+    """No rank outlives its test module: a world still running at the
+    module's end (its join never reached) is killed, and the module fails."""
+    yield
+    left = [w for w in list(_LIVE_WORLDS) if w.kill()]
+    _LIVE_WORLDS.clear()
+    assert not left, f"{len(left)} world(s) still running at the module's end, killed"
+
+
+def test_within_fails_a_blocked_call_and_passes_the_rest_through():
+    release = threading.Event()
+    with pytest.raises(pytest.fail.Exception, match=r"Event\.wait ran past 0\.2 s"):
+        within(release.wait, 0.2, on_timeout=release.set)
+    assert release.is_set()  # on_timeout ran: what the call waited on was released
+    assert within(lambda: 3, 5) == 3
+
+    def boom():
+        raise ValueError("raised in the thread")
+
+    with pytest.raises(ValueError, match="raised in the thread"):
+        within(boom, 5)
 
 
 def _assert_same_tree(a, b, msg):
@@ -262,7 +337,8 @@ def worlds(tree, fused_prefill, tmp_path_factory):
     attn = _attn_inputs()
     out = {}
     for n in (2, 4):
-        world = start_world(tmp_path_factory.mktemp(f"world{n}"), n, qwen_world, ntree, attn)
+        world = start_world(tmp_path_factory.mktemp(f"world{n}"), n, qwen_world, ntree, attn,
+                            timeout=WORLD_TIMEOUT_S)
         ref = {"unmeshed": jax_run(jtree)[0]}
         if n == 2:
             ref["dp"] = jax_run(jtree, 2, 1, "data")[0]
@@ -347,7 +423,7 @@ def test_sp_fused_attention_matches_reference_and_jax(worlds, n):
     np.testing.assert_allclose(ours[:, 6:], np.asarray(jout)[:, 6:], atol=2e-5, rtol=2e-5)
 
 
-def test_multihost_dryrun_two_processes():
+def test_multihost_dryrun_two_processes(monkeypatch):
     """``run_dryrun(2)``: two processes over a coordinator address (gloo
     here), DP decode and the ServingEngine bit-exact against a
     process-local reference, and JAX's pipeline-parallel train step (2
@@ -356,6 +432,7 @@ def test_multihost_dryrun_two_processes():
     unpipelined step."""
     from rho_tts_tpu_torch.parallel.multihost_dryrun import PP_GRAD_TOL, run_dryrun
 
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the two processes inherit it
     reports = run_dryrun(2, timeout=WORLD_TIMEOUT_S)
     assert len(reports) == 2 and all(r.startswith("OK") for r in reports)
     assert "serve=OK" in reports[0] and reports[0].split("checksum=")[1] == \

@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel_ranks import assert_ranks_agree, start_world
+from test_torch_port_parallel_ranks import (WORLD_TIMEOUT_S, assert_ranks_agree,
+                                            reap_worlds, start_world)  # noqa: F401 — fixture
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -156,7 +157,8 @@ def worlds(tmp_path_factory):
     out = {}
     try:
         for n, mode in ((2, "data"), (4, "tensor")):
-            world = start_world(tmp_path_factory.mktemp(f"serve{n}"), n, serving_world, nq, ncb)
+            world = start_world(tmp_path_factory.mktemp(f"serve{n}"), n, serving_world, nq, ncb,
+                                timeout=WORLD_TIMEOUT_S)
             mesh_ = create_mesh(n, model_parallel=1 if mode == "data" else 2)
             qm = QwenTTSModel(PRESETS["tiny"], params=qtree)
             getattr(inference, f"enable_{mode}_parallel")(qm, mesh_)

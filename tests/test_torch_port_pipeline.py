@@ -43,7 +43,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel_ranks import start_world
+from test_torch_port_parallel_ranks import (WORLD_TIMEOUT_S, reap_worlds,  # noqa: F401 — fixture
+                                            start_world)
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -262,7 +263,8 @@ def worlds(tmp_path_factory):
     tree = jax.tree.map(np.asarray, jtree)
     batch = _train_batch()
     started = {n: start_world(tmp_path_factory.mktemp(f"pipe{n}"), n, pipe_world, stack_np,
-                              x_np, tree, lora_tree(tree), batch) for n in (2, 4)}
+                              x_np, tree, lora_tree(tree), batch, timeout=WORLD_TIMEOUT_S)
+               for n in (2, 4)}
     fwd = jax.jit(lambda p, x, m: jtfm.stack_forward(p, jcfg, x, jnp.broadcast_to(
         jnp.arange(6), x.shape[:2]), attn_mask=m)[0])
     mask = (jnp.arange(6)[None, :] < jnp.array(MASK_LENS)[:, None])

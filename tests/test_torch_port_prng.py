@@ -14,6 +14,8 @@ from rho_tts_tpu.models.qwen import model as jmodel
 from rho_tts_tpu_torch.models.qwen import model as tmodel
 from rho_tts_tpu_torch.utils import prng
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 SEEDS = [0, 1, 7, 0x5EED, 2**31 - 1, 123456789]
 FRAMES = [0, 1, 2, 63, 64, 1000, 2**31 + 5]
 

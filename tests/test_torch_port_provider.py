@@ -32,6 +32,8 @@ from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
 from rho_tts_tpu_torch.providers.qwen import QwenTTS as TQwenTTS
 from test_torch_port_slice import fp32_params, jax_prefill_kernel  # noqa: F401 — fixtures
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 TEXTS = ["port parity for the provider", "a second, slightly longer line of text here"]
 COMMON = dict(device="cpu", seed=1234, max_chars_per_segment=200, max_iterations=1,
               min_audio_sec=1.0)

@@ -23,6 +23,8 @@ from rho_tts_tpu_torch.models import quantization as tq
 from rho_tts_tpu_torch.ops.cuda import int4_matmul as ti4
 from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as tw8
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 

@@ -25,6 +25,7 @@ import rho_tts_tpu
 import rho_tts_tpu_torch
 from rho_tts_tpu.providers.qwen import QwenTTS as JQwenTTS
 from rho_tts_tpu_torch.providers.qwen import QwenTTS as TQwenTTS
+from test_torch_port_parallel_ranks import within
 from test_torch_port_slice import jax_prefill_kernel  # noqa: F401 — fixture
 from test_torch_port_speculative import fp32_tree, model_pair
 
@@ -239,13 +240,13 @@ def test_served_cancellation():
             token.cancel()
             req.fire()
 
-        t = threading.Thread(target=fire_later)
+        t = threading.Thread(target=fire_later, daemon=True)
         t.start()
         try:
             assert tts.generate("Hello there", cancellation_token=token) is None
             assert req.cancelled
         finally:
-            t.join()
+            within(t.join, 30)
 
 
 def test_served_deferred_burst_validated_in_one_batch():
@@ -268,7 +269,7 @@ def test_served_deferred_burst_validated_in_one_batch():
             for r in reqs:
                 r.fire()
 
-        t = threading.Thread(target=fire_all)
+        t = threading.Thread(target=fire_all, daemon=True)
         t.start()
         try:
             with patch.object(tts, "_validate_accent_drift_batch", side_effect=drift), \
@@ -276,7 +277,7 @@ def test_served_deferred_burst_validated_in_one_batch():
                                  side_effect=lambda a, sr, x: [(True, 1.0, None)] * len(a)):
                 assert tts.generate("A. B. C") is not None
         finally:
-            t.join()
+            within(t.join, 30)
         assert batch_sizes == [3]
 
 

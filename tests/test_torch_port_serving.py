@@ -24,6 +24,7 @@ from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
 from rho_tts_tpu_torch.parallel import inference, mesh
 from rho_tts_tpu_torch.serving import ServingEngine as TEngine
 from test_torch_port_parallel import world_of_one  # noqa: F401 — fixture
+from test_torch_port_parallel_ranks import within
 from test_torch_port_speculative import fp32_tree, model_pair
 
 torch.set_num_threads(1)  # several test workers share the cores
@@ -177,7 +178,8 @@ class TestSampledParity:
 
 
 def _collect(req, pieces):
-    t = threading.Thread(target=lambda: pieces.extend(p for p, _sr in req.chunks(timeout=300)))
+    t = threading.Thread(target=lambda: pieces.extend(p for p, _sr in req.chunks(timeout=300)),
+                         daemon=True)
     t.start()
     return t
 
@@ -191,7 +193,7 @@ class TestStreamingServing:
             pieces = []
             t = _collect(streamed, pieces)
             eng.run_until_idle()
-            t.join(timeout=30)
+            within(t.join, 30)
             assert len(pieces) >= 2 and streamed.t_first_audio is not None
             wav_stream = np.concatenate([_np(p) for p in pieces])
             wav_plain = _np(plain.result(timeout=5)[0])

@@ -34,6 +34,8 @@ from rho_tts_tpu_torch import from_jax
 from rho_tts_tpu_torch.models.qwen import PRESETS as TPRESETS
 from rho_tts_tpu_torch.models.qwen.model import QwenTTSModel as TModel
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 TEXTS = ["port parity", "a slightly longer second line of text"]
 GEN = dict(speaker="Aria", min_frames=20, max_frames=64, temperature=1.0)
 
@@ -217,7 +219,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
     )
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr

@@ -37,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel_ranks import start_world
+from test_torch_port_parallel_ranks import (WORLD_TIMEOUT_S, reap_worlds,  # noqa: F401 — fixture
+                                            start_world)
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -289,7 +290,8 @@ def worlds(tmp_path_factory):
     out = {}
     for n in (2, 4):
         tmp = tmp_path_factory.mktemp(f"sharded{n}")
-        world = start_world(tmp, n, sharded_world, ntree, adapters, batch, str(tmp))
+        world = start_world(tmp, n, sharded_world, ntree, adapters, batch, str(tmp),
+                            timeout=WORLD_TIMEOUT_S)
         ref = {}
         for name, dp, mp in MESHES[n]:
             mesh = create_mesh(dp * mp, model_parallel=mp)

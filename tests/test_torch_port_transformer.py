@@ -22,6 +22,8 @@ from rho_tts_tpu_torch import from_jax
 from rho_tts_tpu_torch.models import quantization as tq
 from rho_tts_tpu_torch.models import transformer as ttfm
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 CFG = dict(hidden=64, layers=2, q_heads=4, kv_heads=2, head_dim=16, ffn=128)
 
 

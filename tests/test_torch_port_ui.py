@@ -40,6 +40,8 @@ import rho_tts_tpu_torch.ui.state as tstate
 from rho_tts_tpu.result import GenerationResult as JResult
 from rho_tts_tpu_torch.result import GenerationResult as TResult
 
+torch.set_num_threads(1)  # several test workers share the cores
+
 UI = {"jax": types.SimpleNamespace(cb=jcb, cfg=jcfg, state=jstate, session=jsession,
                                    Result=JResult, mod="rho_tts_tpu"),
       "torch": types.SimpleNamespace(cb=tcb, cfg=tcfg, state=tstate, session=tsession,
