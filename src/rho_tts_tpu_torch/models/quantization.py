@@ -53,6 +53,7 @@ from ..ops.cuda.int4_matmul import int4_matmul
 from ..ops.cuda.w8a8_matmul import w8a8_matmul
 from ..parallel.collectives import all_reduce_max, all_reduce_sum
 from ..parallel.mesh import Axis
+from ..utils import profiling
 
 QUANT_KEYS = ("wqkv", "wo", "w_gate", "w_up", "w_down")
 BITS_MAX = 7  # symmetric int4: values in [-7, 7]
@@ -139,9 +140,11 @@ def matmul(x: torch.Tensor, w, reduce: Optional[Axis] = None) -> torch.Tensor:
         if "q4" in w:
             return all_reduce_sum(int4_matmul(x, w["q4"], w["s"]), reduce)
         if x.dim() >= 2 and x.shape[-2] > 1 and _w8a8_prefill_enabled():
-            return _w8a8_matmul(x, w["q"], w["s"], reduce)
-        y = all_reduce_sum(x @ w["q"].to(x.dtype), reduce)
-        return (y.float() * w["s"]).to(x.dtype)
+            with profiling.region("quant/w8a8_matmul"):
+                return _w8a8_matmul(x, w["q"], w["s"], reduce)
+        with profiling.region("quant/int8_matmul"):
+            y = all_reduce_sum(x @ w["q"].to(x.dtype), reduce)
+            return (y.float() * w["s"]).to(x.dtype)
     return all_reduce_sum(x @ w, reduce)
 
 

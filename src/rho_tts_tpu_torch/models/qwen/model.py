@@ -234,41 +234,45 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
     place; ``tp`` as :func:`_prefill`. Returns ``(codes (B, steps, nq),
     done (B, steps), cache_k, cache_v, key_valid, last_codes, done)``.
     """
-    b = last_codes.shape[0]
-    nq = cfg.codec.n_codebooks
-    embs = params["audio_embed"]
-    lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
-    # Every step's sampler noise in one batched pass: it depends only on
-    # (seed, frame), both known before the chunk runs.
-    frames = step_base + torch.arange(steps, dtype=torch.int64, device=seeds.device)
-    noise = _gumbel_noise(seeds, frames[:, None], top_k)  # (steps, B, top_k)
-    codes_seq, done_seq = [], []
+    with profiling.region("qwen/chunk_prologue"):
+        nq = cfg.codec.n_codebooks
+        embs = params["audio_embed"]
+        lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
+        # Every step's sampler noise in one batched pass: it depends only on
+        # (seed, frame), both known before the chunk runs.
+        frames = step_base + torch.arange(steps, dtype=torch.int64, device=seeds.device)
+        noise = _gumbel_noise(seeds, frames[:, None], top_k)  # (steps, B, top_k)
+        codes_seq, done_seq = [], []
     for t in range(steps):
-        emb = embs[0][last_codes[:, 0]]
-        for q in range(1, nq):
-            emb = emb + embs[q][last_codes[:, q]]
-        slot = slot0 + t
-        h, _ = tfm.stack_forward(
-            params["talker"], cfg.talker, emb[:, None, :], (rope_base + t)[:, None],
-            kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
-            key_valid=key_valid, tp=tp,
-        )
-        key_valid[:, slot] = True
-        h_last = h[:, -1]
-        logits = h_last.float() @ lm_head
-        if step_base + t < min_frames:  # enforce a minimum duration
-            logits[:, cfg.audio_eos] = -1e30
-        tok0 = _sample_with_noise(logits, temperature, top_k, noise[t])
-        newly_done = tok0 == cfg.audio_eos
-        tok0 = torch.where(done, cfg.audio_pad, tok0)
-        res = _predict_residuals(params, cfg, h_last, tok0.clamp_max(cfg.codec.codebook_size - 1),
-                                 tp)
-        res = torch.where(done[:, None], 0, res)
-        codes = torch.cat([tok0[:, None], res], dim=-1)
-        done = done | newly_done
-        codes_seq.append(codes)
-        done_seq.append(done)
-        last_codes = codes
+        with profiling.region("qwen/step"):
+            with profiling.region("qwen/embed"):
+                emb = embs[0][last_codes[:, 0]]
+                for q in range(1, nq):
+                    emb = emb + embs[q][last_codes[:, q]]
+            slot = slot0 + t
+            h, _ = tfm.stack_forward(
+                params["talker"], cfg.talker, emb[:, None, :], (rope_base + t)[:, None],
+                kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
+                key_valid=key_valid, tp=tp,
+            )
+            with profiling.region("qwen/sample"):
+                key_valid[:, slot] = True
+                h_last = h[:, -1]
+                logits = h_last.float() @ lm_head
+                if step_base + t < min_frames:  # enforce a minimum duration
+                    logits[:, cfg.audio_eos] = -1e30
+                tok0 = _sample_with_noise(logits, temperature, top_k, noise[t])
+                newly_done = tok0 == cfg.audio_eos
+                tok0 = torch.where(done, cfg.audio_pad, tok0)
+            with profiling.region("qwen/residuals"):
+                res = _predict_residuals(params, cfg, h_last,
+                                         tok0.clamp_max(cfg.codec.codebook_size - 1), tp)
+                res = torch.where(done[:, None], 0, res)
+                codes = torch.cat([tok0[:, None], res], dim=-1)
+                done = done | newly_done
+                codes_seq.append(codes)
+                done_seq.append(done)
+                last_codes = codes
     return (
         torch.stack(codes_seq, dim=1),
         torch.stack(done_seq, dim=1),
@@ -354,29 +358,30 @@ class QwenTTSModel(nn.Module):
         self.device = torch.device(device or "cuda")
         self.model_path = model_path or config.name
         self.tokenizer = load_tokenizer(model_path, vocab_size=config.text_vocab)
-        if params is None:
-            params = init_params(config, seed, self.device)
-        if lora_path is not None:
-            # Merge BEFORE quantization: adapters train in f32 against the
-            # dense base; a quantized export cannot be merged into.
-            from .lora import apply_lora, load_lora
+        with profiling.stage("qwen/model_init"):  # the weights placed, merged and quantized
+            if params is None:
+                params = init_params(config, seed, self.device)
+            if lora_path is not None:
+                # Merge BEFORE quantization: adapters train in f32 against the
+                # dense base; a quantized export cannot be merged into.
+                from .lora import apply_lora, load_lora
 
-            if _tree_quantization(params) is not None:
-                raise ValueError(
-                    "lora_path requires a DENSE base (merge precedes "
-                    "quantization); load the un-quantized export instead"
-                )
-            lora, meta = load_lora(lora_path, device=self.device)
-            # Ordinary tensors without autograd history, never inference tensors.
-            with torch.inference_mode(False), torch.no_grad():
-                params = apply_lora(params, lora, scale=float(meta.get("scale", 1.0)))
-        if quantization in ("int8", "int4"):
-            params = {**params, "talker": quantize_stack(params["talker"], quantization)}
-        elif quantization not in (None, "none"):
-            raise ValueError(f"Unsupported quantization: {quantization}")
-        self.quantization = _tree_quantization(params)
-        #: the registered parameters as a plain nested dict, for the stage functions
-        self.params = {key: _register(self, key, value) for key, value in params.items()}
+                if _tree_quantization(params) is not None:
+                    raise ValueError(
+                        "lora_path requires a DENSE base (merge precedes "
+                        "quantization); load the un-quantized export instead"
+                    )
+                lora, meta = load_lora(lora_path, device=self.device)
+                # Ordinary tensors without autograd history, never inference tensors.
+                with torch.inference_mode(False), torch.no_grad():
+                    params = apply_lora(params, lora, scale=float(meta.get("scale", 1.0)))
+            if quantization in ("int8", "int4"):
+                params = {**params, "talker": quantize_stack(params["talker"], quantization)}
+            elif quantization not in (None, "none"):
+                raise ValueError(f"Unsupported quantization: {quantization}")
+            self.quantization = _tree_quantization(params)
+            #: the registered parameters as a plain nested dict, for the stage functions
+            self.params = {key: _register(self, key, value) for key, value in params.items()}
         self.sample_rate = config.codec.sample_rate
         self._ref_codes_cache: Dict[str, np.ndarray] = {}
         #: the device mesh (``parallel.inference``); None = one device
@@ -614,15 +619,17 @@ class QwenTTSModel(nn.Module):
         ``_derive_row_seeds(rng, n)`` of a threefry key ``rng`` ``(2,)``
         (``prng.PRNGKey(0)`` by default), the JAX package's draw.
         """
-        codes_dev, done_dev, n_real = self._generate_codes_arrays(
-            texts, speaker=speaker, language=language, ref_audio=ref_audio,
-            ref_text=ref_text, max_frames=max_frames, min_frames=min_frames,
-            temperature=temperature, top_k=top_k, rng=rng, cancel_check=cancel_check,
-            prebuilt_prompt=prebuilt_prompt, seeds=seeds,
-        )
-        with profiling.stage("qwen/fetch_codes"):
-            codes = codes_dev.cpu().numpy().astype(np.int32)
-            done_seq = done_dev.cpu().numpy()
+        with profiling.stage("qwen/generate_codes", rows=len(texts)) as attrs:
+            codes_dev, done_dev, n_real = self._generate_codes_arrays(
+                texts, speaker=speaker, language=language, ref_audio=ref_audio,
+                ref_text=ref_text, max_frames=max_frames, min_frames=min_frames,
+                temperature=temperature, top_k=top_k, rng=rng, cancel_check=cancel_check,
+                prebuilt_prompt=prebuilt_prompt, seeds=seeds,
+            )
+            attrs["frames"] = int(done_dev.shape[1])
+            with profiling.stage("qwen/fetch_codes"):
+                codes = codes_dev.cpu().numpy().astype(np.int32)
+                done_seq = done_dev.cpu().numpy()
         outputs = []
         for i in range(n_real):
             d = np.nonzero(done_seq[i])[0]
@@ -715,7 +722,7 @@ class QwenTTSModel(nn.Module):
         for _ in range(n_chunks):
             if cancel_check is not None:
                 cancel_check()
-            with profiling.stage("qwen/decode_chunk"):
+            with profiling.stage("qwen/decode_chunk", steps=_chunk()):
                 (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
                  done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,
@@ -725,8 +732,11 @@ class QwenTTSModel(nn.Module):
             all_codes.append(codes_chunk)
             all_done.append(done_chunk)
             slot0 += _chunk()
-            if prev_flag is not None and bool(prev_flag):
-                break
+            if prev_flag is not None:
+                with profiling.stage("qwen/done_check"):  # the host waits for the flag
+                    finished = bool(prev_flag)
+                if finished:
+                    break
             prev_flag = self._all_done(done)
 
         data = self._data_axis()
@@ -748,35 +758,38 @@ class QwenTTSModel(nn.Module):
         tensor in place (gather + end-mask per length bucket).
         """
         text_list = [texts] if isinstance(texts, str) else list(texts)
-        codes_dev, done_dev, n_real = self._generate_codes_arrays(
-            text_list, speaker=speaker, language=language, ref_audio=ref_audio,
-            ref_text=ref_text, max_frames=max_frames, min_frames=min_frames,
-            temperature=temperature, top_k=top_k, rng=rng, cancel_check=cancel_check,
-            seeds=seeds,
-        )
-        with profiling.stage("qwen/fetch_done"):
-            done_np = done_dev.cpu().numpy()[:n_real]
-        ends = []
-        for i in range(n_real):
-            d = np.nonzero(done_np[i])[0]
-            ends.append(max(int(d[0]) if d.size else done_np.shape[1], 1))
+        with profiling.stage("qwen/synthesize", rows=len(text_list)) as attrs:
+            codes_dev, done_dev, n_real = self._generate_codes_arrays(
+                text_list, speaker=speaker, language=language, ref_audio=ref_audio,
+                ref_text=ref_text, max_frames=max_frames, min_frames=min_frames,
+                temperature=temperature, top_k=top_k, rng=rng, cancel_check=cancel_check,
+                seeds=seeds,
+            )
+            attrs["frames"] = int(done_dev.shape[1])
+            with profiling.stage("qwen/fetch_done"):
+                done_np = done_dev.cpu().numpy()[:n_real]
+            ends = []
+            for i in range(n_real):
+                d = np.nonzero(done_np[i])[0]
+                ends.append(max(int(d[0]) if d.size else done_np.shape[1], 1))
 
-        hop = self.config.codec.hop
-        # Rows of equal (bucketed) frame count are vocoded as one batch.
-        waves: List[Optional[torch.Tensor]] = [None] * n_real
-        buckets: Dict[int, List[int]] = {}
-        for i, end in enumerate(ends):
-            buckets.setdefault(_round_up(end, _chunk()), []).append(i)
-        for t, idxs in buckets.items():
-            with profiling.stage("qwen/vocode"):
-                wav, _ = _vocode_rows(
-                    self.params, self.config, codes_dev,
-                    torch.as_tensor(idxs, dtype=torch.int64).to(self.device),
-                    torch.as_tensor([ends[i] for i in idxs], dtype=torch.int64).to(self.device),
-                    t,
-                )
-            for row, i in enumerate(idxs):
-                waves[i] = wav[row, : ends[i] * hop]
+            hop = self.config.codec.hop
+            # Rows of equal (bucketed) frame count are vocoded as one batch.
+            waves: List[Optional[torch.Tensor]] = [None] * n_real
+            buckets: Dict[int, List[int]] = {}
+            for i, end in enumerate(ends):
+                buckets.setdefault(_round_up(end, _chunk()), []).append(i)
+            for t, idxs in buckets.items():
+                with profiling.stage("qwen/vocode"):
+                    wav, _ = _vocode_rows(
+                        self.params, self.config, codes_dev,
+                        torch.as_tensor(idxs, dtype=torch.int64).to(self.device),
+                        torch.as_tensor([ends[i] for i in idxs],
+                                        dtype=torch.int64).to(self.device),
+                        t,
+                    )
+                for row, i in enumerate(idxs):
+                    waves[i] = wav[row, : ends[i] * hop]
         return waves, self.sample_rate
 
     @torch.inference_mode()
@@ -899,7 +912,7 @@ class QwenTTSModel(nn.Module):
                 break
             if cancel_check is not None:
                 cancel_check()
-            with profiling.stage("qwen/decode_chunk"):
+            with profiling.stage("qwen/decode_chunk", steps=_chunk()):
                 (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
                  done) = _decode_chunk(
                     self.params, cfg, cache_k, cache_v, key_valid, slot0,

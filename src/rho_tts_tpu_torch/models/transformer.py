@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
 from ..parallel.collectives import all_gather, copy_to_model, reduce_from_model
+from ..utils import profiling
 from .quantization import matmul as qmm
 
 Params = Dict[str, Any]
@@ -167,16 +168,22 @@ def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope, tp_grad=
     return _rotate(q, *rope), _rotate(k, *rope), v
 
 
-def _out_and_mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor,
-                 attn: torch.Tensor, tp=None, tp_grad=None) -> torch.Tensor:
-    """Output projection and residual, then the SwiGLU MLP and residual.
-    Under ``tp`` the row-parallel ``wo`` and ``w_down`` sum over the axis in
-    place; under ``tp_grad`` through the differentiable pair (Megatron's
-    ``copy_to_model`` before ``w_gate`` / ``w_up``, ``reduce_from_model``
-    after ``wo`` and ``w_down``)."""
+def _attn_out(params: Params, cfg: TransformerConfig, x: torch.Tensor,
+              attn: torch.Tensor, tp=None, tp_grad=None) -> torch.Tensor:
+    """Output projection and residual. Under ``tp`` the row-parallel ``wo``
+    sums over the axis in place; under ``tp_grad`` through Megatron's
+    differentiable ``reduce_from_model``."""
     b, t, _ = x.shape
     attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
-    x = x + reduce_from_model(qmm(attn, params["wo"], reduce=tp), tp_grad)
+    return x + reduce_from_model(qmm(attn, params["wo"], reduce=tp), tp_grad)
+
+
+def _mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor, tp=None,
+         tp_grad=None) -> torch.Tensor:
+    """The SwiGLU MLP and residual. Under ``tp`` the row-parallel ``w_down``
+    sums over the axis in place; under ``tp_grad`` through the
+    differentiable pair (``copy_to_model`` before ``w_gate`` / ``w_up``,
+    ``reduce_from_model`` after ``w_down``)."""
     h = copy_to_model(rms_norm(x, params["mlp_norm"], cfg.rms_eps), tp_grad)
     gate = F.silu(qmm(h, params["w_gate"]).float())
     up = qmm(h, params["w_up"]).float()
@@ -243,7 +250,8 @@ def block_forward(
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
     q, k, v = _qkv(params, cfg, x, rope, tp_grad=tp)
     attn = _masked_attention(q, k, v, mask, cfg)
-    return _out_and_mlp(params, cfg, x, attn, tp_grad=tp), (k, v)
+    x = _attn_out(params, cfg, x, attn, tp_grad=tp)
+    return _mlp(params, cfg, x, tp_grad=tp), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -330,36 +338,39 @@ def _block_forward_cached(
     ``attn_mask`` the whole prompt's: K/V are all-gathered, written whole
     and attended by the local queries at their global offset.
     """
-    q, k, v = _qkv(params, cfg, x, rope)
-    if sp is not None:
-        k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
-    b, t = k.shape[:2]
-
-    if isinstance(slot, int):
-        ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
-        cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
-    else:  # per-row columns; out-of-range columns drop
-        cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
-        scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
-        scatter_rows(cv_all[layer], cols, v.to(cv_all.dtype))
-
-    if mask is None:
-        # The chunk IS the whole attention context (empty cache): the
-        # prefill kernel runs over the fresh q/k/v directly.
-        pmask = attn_mask if attn_mask is not None else torch.ones(
-            (b, t), dtype=torch.bool, device=x.device
-        )
+    with profiling.region("talker/attention"):
+        q, k, v = _qkv(params, cfg, x, rope)
         if sp is not None:
-            attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
+            k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
+        b, t = k.shape[:2]
+
+        if isinstance(slot, int):
+            ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
+            cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
+        else:  # per-row columns; out-of-range columns drop
+            cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
+            scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
+            scatter_rows(cv_all[layer], cols, v.to(cv_all.dtype))
+
+        if mask is None:
+            # The chunk IS the whole attention context (empty cache): the
+            # prefill kernel runs over the fresh q/k/v directly.
+            pmask = attn_mask if attn_mask is not None else torch.ones(
+                (b, t), dtype=torch.bool, device=x.device
+            )
+            if sp is not None:
+                attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
+            else:
+                attn = fused_gqa_attention(q, k, v, pmask, causal=True)
+        elif t == 1:
+            attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
         else:
-            attn = fused_gqa_attention(q, k, v, pmask, causal=True)
-    elif t == 1:
-        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
-    else:
-        # T > 1 over a used cache (speculative verify): JAX computes it as
-        # plain masked attention (its einsum branch), and so does the port.
-        attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
-    return _out_and_mlp(params, cfg, x, attn, tp)
+            # T > 1 over a used cache (speculative verify): JAX computes it as
+            # plain masked attention (its einsum branch), and so does the port.
+            attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
+        x = _attn_out(params, cfg, x, attn, tp)
+    with profiling.region("talker/mlp"):
+        return _mlp(params, cfg, x, tp)
 
 
 def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, block_causal):

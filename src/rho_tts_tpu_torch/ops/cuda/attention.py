@@ -31,6 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ...utils import profiling
 from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
@@ -142,24 +143,25 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
     check_no_autograd("fused_gqa_attention", "reference_gqa_attention", q, k, v)
     if q.device.type == "cpu":
         return reference_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=q_offset)
-    key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
-           v.shape, v.stride(), v.dtype, v.device, attn_mask.shape, attn_mask.stride(),
-           attn_mask.dtype, attn_mask.device)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plan(key, q, k, v, attn_mask)
-    out_shape, dev_index, args = plan
-    out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
-    rc = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_mask.data_ptr(), out.data_ptr(), *args,
-        0 if q_offset is None else int(q_offset), int(bool(causal)), dev_index,
-        # torch.cuda.current_stream(device).cuda_stream, without building a Stream
-        torch._C._cuda_getCurrentRawStream(dev_index),
-    )
-    if rc != 0:
-        raise RuntimeError(f"prefill attention kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    with profiling.region("kernels/attention"):
+        key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+               v.shape, v.stride(), v.dtype, v.device, attn_mask.shape, attn_mask.stride(),
+               attn_mask.dtype, attn_mask.device)
+        plan = _plans.get(key)
+        if plan is None:
+            plan = _plan(key, q, k, v, attn_mask)
+        out_shape, dev_index, args = plan
+        out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
+        rc = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_mask.data_ptr(), out.data_ptr(), *args,
+            0 if q_offset is None else int(q_offset), int(bool(causal)), dev_index,
+            # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+            torch._C._cuda_getCurrentRawStream(dev_index),
+        )
+        if rc != 0:
+            raise RuntimeError(f"prefill attention kernel launch failed: cudaError_t {rc}")
+        launches += 1
+        return out
 
 
 def sp_fused_gqa_attention(q, k, v, attn_mask, axis, causal: bool = True):

@@ -36,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ...utils import profiling
 from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
@@ -192,24 +193,25 @@ def decode_gqa_attention(q, k, v, mask):
     check_no_autograd("decode_gqa_attention", "reference_decode_attention", q, k, v)
     if q.device.type == "cpu":
         return reference_decode_attention(q, k, v, mask)
-    key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
-           v.shape, v.stride(), v.dtype, v.device, mask.shape, mask.stride(), mask.dtype,
-           mask.device)
-    plan = _plans.get(key)
-    if plan is None:
-        plan = _plan(key, q, k, v, mask)
-    out_shape, dev_index, floats, n_tickets, args = plan
-    out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
-    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
-    stream = torch._C._cuda_getCurrentRawStream(dev_index)
-    work = tickets = None
-    if floats:
-        work, tickets = _workspace(q.device, stream, floats, n_tickets)
-    rc = _kernel()[0](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), work, tickets,
-        *args, dev_index, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    with profiling.region("kernels/decode_attention"):
+        key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
+               v.shape, v.stride(), v.dtype, v.device, mask.shape, mask.stride(), mask.dtype,
+               mask.device)
+        plan = _plans.get(key)
+        if plan is None:
+            plan = _plan(key, q, k, v, mask)
+        out_shape, dev_index, floats, n_tickets, args = plan
+        out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
+        # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+        stream = torch._C._cuda_getCurrentRawStream(dev_index)
+        work = tickets = None
+        if floats:
+            work, tickets = _workspace(q.device, stream, floats, n_tickets)
+        rc = _kernel()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), work,
+            tickets, *args, dev_index, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
+        launches += 1
+        return out

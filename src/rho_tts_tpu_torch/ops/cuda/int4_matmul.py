@@ -39,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ...utils import profiling
 from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
@@ -175,18 +176,19 @@ def int4_matmul(x, q4, s):
     check_no_autograd("int4_matmul", "reference_int4_matmul", x, s)
     if x.device.type == "cpu":
         return reference_int4_matmul(x, q4, s)
-    key = (x.shape, x.stride(), x.dtype, x.device, q4.shape, q4.stride(), q4.dtype, q4.device,
-           s.shape, s.stride(), s.dtype, s.device)
-    p = _plans.get(key)
-    if p is None:
-        p = _plan(key, x, q4, s)
-    out_shape, args = p
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
-    stream = torch._C._cuda_getCurrentRawStream(args[-1])
-    rc = _kernel()(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(), *args, stream)
-    if rc != 0:
-        _check(x.reshape(-1, x.shape[-1]), q4, s)  # names a per-call fault (alignment) if any
-        raise RuntimeError(f"int4 matmul kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    with profiling.region("kernels/int4_matmul"):
+        key = (x.shape, x.stride(), x.dtype, x.device, q4.shape, q4.stride(), q4.dtype, q4.device,
+               s.shape, s.stride(), s.dtype, s.device)
+        p = _plans.get(key)
+        if p is None:
+            p = _plan(key, x, q4, s)
+        out_shape, args = p
+        out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+        stream = torch._C._cuda_getCurrentRawStream(args[-1])
+        rc = _kernel()(x.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(), *args, stream)
+        if rc != 0:
+            _check(x.reshape(-1, x.shape[-1]), q4, s)  # names a per-call fault (alignment) if any
+            raise RuntimeError(f"int4 matmul kernel launch failed: cudaError_t {rc}")
+        launches += 1
+        return out

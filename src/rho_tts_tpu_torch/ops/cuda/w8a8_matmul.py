@@ -31,6 +31,7 @@ from typing import Dict
 
 import torch
 
+from ...utils import profiling
 from . import _build, check_no_autograd
 
 #: number of times the CUDA kernel was launched
@@ -127,20 +128,21 @@ def w8a8_matmul(xq, sx, q, ws, out_dtype):
     check_no_autograd("w8a8_matmul", "reference_w8a8_matmul", sx, ws)
     if xq.device.type == "cpu":
         return reference_w8a8_matmul(xq, sx, q, ws, out_dtype)
-    key = (xq.shape, xq.stride(), xq.dtype, xq.device, sx.shape, sx.stride(), sx.dtype,
-           sx.device, q.shape, q.stride(), q.dtype, q.device, ws.shape, ws.stride(), ws.dtype,
-           ws.device, out_dtype)
-    p = _plans.get(key)
-    if p is None:
-        p = _plan(key, xq, sx, q, ws, out_dtype)
-    out_shape, args = p
-    out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
-    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
-    stream = torch._C._cuda_getCurrentRawStream(args[-1])
-    rc = _kernel()(xq.data_ptr(), sx.data_ptr(), q.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                   *args, stream)
-    if rc != 0:
-        _check(xq, sx, q, ws, out_dtype)  # names a per-call fault (alignment) if there is one
-        raise RuntimeError(f"w8a8 matmul kernel launch failed: cudaError_t {rc}")
-    launches += 1
-    return out
+    with profiling.region("kernels/w8a8_matmul"):
+        key = (xq.shape, xq.stride(), xq.dtype, xq.device, sx.shape, sx.stride(), sx.dtype,
+               sx.device, q.shape, q.stride(), q.dtype, q.device, ws.shape, ws.stride(), ws.dtype,
+               ws.device, out_dtype)
+        p = _plans.get(key)
+        if p is None:
+            p = _plan(key, xq, sx, q, ws, out_dtype)
+        out_shape, args = p
+        out = torch.empty(out_shape, dtype=out_dtype, device=xq.device)
+        # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+        stream = torch._C._cuda_getCurrentRawStream(args[-1])
+        rc = _kernel()(xq.data_ptr(), sx.data_ptr(), q.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                       *args, stream)
+        if rc != 0:
+            _check(xq, sx, q, ws, out_dtype)  # names a per-call fault (alignment) if there is one
+            raise RuntimeError(f"w8a8 matmul kernel launch failed: cudaError_t {rc}")
+        launches += 1
+        return out

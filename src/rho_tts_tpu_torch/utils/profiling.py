@@ -1,28 +1,71 @@
-"""Stage timers and profiler traces for the port's pipeline.
+"""Spans, profiler ranges and profiler traces for the port's pipeline.
 
-``stage("name")`` wraps a pipeline stage in a ``torch.profiler``
-``record_function`` range (visible in a profiler trace) and a host
-wall-clock accumulator queryable via :func:`summary`. On a GPU the host
-clock measures the enqueue unless the stage ends in a synchronisation.
+**Spans** (always on). ``stage(name, **attrs)`` is the port's span recorder:
+the stages of a call and its chunks, about 25 spans in a 192-frame
+``QwenTTSModel.synthesize``. Each span opens a ``torch.profiler``
+``record_function`` range under its name and records:
 
-Device traces are captured with :func:`start_trace` / :func:`stop_trace`
-(directory from the argument or the ``RHO_TTS_TPU_TRACE_DIR`` env var):
-a ``torch.profiler`` session recording CPU activity, and CUDA activity
-whenever the process has a CUDA device, written at :func:`stop_trace` as a
-``*.pt.trace.json`` that TensorBoard's profiler plugin (or Perfetto) opens.
-The kernels of ``ops/cuda`` are launched through ctypes, not PyTorch's
-dispatcher; CUPTI records them all the same, under their own names.
+* an id, its parent's id (the thread's innermost open span) and a ``call``
+  id, shared by every span under one outermost span of the thread;
+* the thread (``threading.get_ident``);
+* host start and end in ns on ``time.time_ns``'s wall clock, the clock
+  ``torch.profiler`` stamps its events on, so a span lies on a device
+  trace's timeline and compares with ``time.time()`` stamps;
+* ``profiled``: whether a profiler was active at its entry or exit, or
+  while a :func:`region` ran inside it;
+* the ``attrs`` passed (the ``with`` statement yields them, so a stage can
+  add what it learns: ``qwen/synthesize`` its ``frames``);
+* once the process has a CUDA context, two timing events recorded on the
+  current stream at entry and exit, read as ``device_ms``: the stream's
+  time from reaching the first to reaching the second.
+
+The recorder never synchronises: an event is read only by :func:`spans`,
+and only once ``query()`` says it has completed (``device_ms`` is None
+before that). No event is recorded while the current stream is capturing
+a CUDA graph. Spans are kept in memory, at most ``MAX_SPANS``, the oldest
+dropped first (:func:`dropped` counts them); :func:`summary` totals them
+by name and :func:`reset` clears them.
+
+Always-on spans: ``qwen/model_init``, ``qwen/synthesize`` and
+``qwen/generate_codes`` (the calls, attrs ``rows`` and ``frames``),
+``qwen/prompt_build``, ``qwen/prefill``, ``qwen/decode_chunk`` (attr
+``steps``), ``qwen/done_check`` (the host's wait on the lagged all-done
+flag), ``qwen/fetch_done``, ``qwen/fetch_codes``, ``qwen/vocode``, and the
+``serve/``, ``chatterbox/``, ``generate/``, ``validate/`` and ``dsp/``
+stages of the other paths.
+
+**Ranges** (only under a profiler). ``region(name)`` opens a profiler
+range while a profiler is active and is a no-op otherwise (one read of the
+profiler's flag); it records no span. They lie inside the decode step, at
+the granularity of its layers, so that a trace names the layer whose host
+code runs in each idle gap of the device: ``qwen/chunk_prologue``,
+``qwen/step``, ``qwen/embed``, ``qwen/sample``, ``qwen/residuals``
+(``models/qwen/model.py``: ``_decode_chunk``); ``talker/attention``,
+``talker/mlp`` (``models/transformer.py``: each cached block);
+``quant/int8_matmul``, ``quant/w8a8_matmul`` (``models/quantization.py``);
+and ``kernels/attention``, ``kernels/decode_attention``,
+``kernels/int4_matmul``, ``kernels/w8a8_matmul`` around the launches of
+``ops/cuda``.
+
+**Traces**: :func:`start_trace` / :func:`stop_trace` (directory from the
+argument or the ``RHO_TTS_TPU_TRACE_DIR`` env var) run a ``torch.profiler``
+session recording CPU activity, and CUDA activity whenever the process has
+a CUDA device, written at :func:`stop_trace` as a ``*.pt.trace.json`` that
+TensorBoard's profiler plugin (or Perfetto) opens. The kernels of
+``ops/cuda`` are launched through ctypes, not PyTorch's dispatcher; CUPTI
+records them all the same, under their own names.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
 import threading
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Deque, Dict, Iterator, List, Optional
 
 import torch
 
@@ -30,37 +73,142 @@ logger = logging.getLogger(__name__)
 
 TRACE_DIR_ENV = "RHO_TTS_TPU_TRACE_DIR"
 
+#: spans kept in memory; the oldest is dropped first
+MAX_SPANS = 16384
+
 _lock = threading.Lock()
-_wall: Dict[str, float] = defaultdict(float)
-_count: Dict[str, int] = defaultdict(int)
+_spans: Deque["_Span"] = collections.deque()
+_dropped = 0
+_ids = itertools.count(1)
+_local = threading.local()
+#: the module whose ``_is_profiler_enabled`` a profiler session sets
+_autograd_profiler = torch.autograd.profiler
+_NO_RANGE = contextlib.nullcontext()
 #: the active ``torch.profiler.profile`` session, if any
 _trace: Optional[torch.profiler.profile] = None
 
 
+class _Span:
+    __slots__ = ("name", "id", "parent", "call", "thread", "start_ns", "end_ns", "profiled",
+                 "attrs", "events", "device_ms")
+
+
+def _open_spans() -> List[_Span]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _event() -> Optional[torch.cuda.Event]:
+    """A timing event recorded on the current stream; None without a CUDA
+    context or while the stream is capturing a graph."""
+    if not torch.cuda.is_initialized() or torch.cuda.is_current_stream_capturing():
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
 @contextlib.contextmanager
-def stage(name: str) -> Iterator[None]:
-    """Annotate a pipeline stage (profiler range + host wall-clock)."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-    dt = time.perf_counter() - t0
+def stage(name: str, **attrs) -> Iterator[Dict]:
+    """Record a span named ``name`` (and a profiler range); yields ``attrs``."""
+    stack = _open_spans()
+    span = _Span()
+    span.name, span.id, span.attrs = name, next(_ids), attrs
+    span.parent = stack[-1].id if stack else None
+    span.call = stack[0].call if stack else span.id
+    span.thread = threading.get_ident()
+    span.profiled = _autograd_profiler._is_profiler_enabled
+    span.device_ms = None
+    start = end = None
+    stack.append(span)
+    try:
+        with torch.profiler.record_function(name):
+            start = _event()
+            span.start_ns = time.time_ns()
+            try:
+                yield attrs
+            finally:
+                span.end_ns = time.time_ns()
+                if start is not None:
+                    end = _event()
+    finally:
+        stack.pop()
+        span.profiled = span.profiled or _autograd_profiler._is_profiler_enabled
+        span.events = (start, end) if end is not None else None
+        _keep(span)
+
+
+def _keep(span: _Span) -> None:
+    global _dropped
     with _lock:
-        _wall[name] += dt
-        _count[name] += 1
+        while _spans and len(_spans) >= MAX_SPANS:
+            _spans.popleft()
+            _dropped += 1
+        _spans.append(span)
+
+
+def region(name: str):
+    """A profiler range named ``name`` while a profiler is active; otherwise
+    a no-op that costs one read of the profiler's flag. Records no span,
+    and marks the thread's open spans ``profiled``.
+
+    The range is torch's C++ ``_RecordFunctionFast``, not the Python
+    ``record_function``: under a profiler it costs about a tenth as much on
+    the host, so the ranges slow the step they trace less.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    stack = getattr(_local, "stack", None)
+    if stack and not stack[-1].profiled:
+        for span in stack:
+            span.profiled = True
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def _device_ms(span: _Span) -> Optional[float]:
+    """The span's device milliseconds once its end event has completed."""
+    events = span.events
+    if span.device_ms is None and events is not None and events[1].query():
+        span.device_ms = events[0].elapsed_time(events[1])
+        span.events = None
+    return span.device_ms
+
+
+def spans() -> List[Dict]:
+    """The spans held, in the order they closed, as plain dicts."""
+    with _lock:
+        held = list(_spans)
+    return [{"name": s.name, "id": s.id, "parent": s.parent, "call": s.call,
+             "thread": s.thread, "start_ns": s.start_ns, "end_ns": s.end_ns,
+             "host_ms": (s.end_ns - s.start_ns) / 1e6, "device_ms": _device_ms(s),
+             "profiled": s.profiled, "attrs": dict(s.attrs)} for s in held]
+
+
+def dropped() -> int:
+    """Spans dropped from the full buffer since the last :func:`reset`."""
+    return _dropped
 
 
 def summary() -> Dict[str, Dict[str, float]]:
-    """Accumulated wall-clock per stage: {name: {seconds, calls}}."""
-    with _lock:
-        return {
-            name: {"seconds": _wall[name], "calls": _count[name]} for name in _wall
-        }
+    """The held spans by name: {name: {seconds, calls[, device_seconds]}};
+    ``seconds`` on the host clock, ``device_seconds`` where events were read."""
+    out: Dict[str, Dict[str, float]] = {}
+    for s in spans():
+        entry = out.setdefault(s["name"], {"seconds": 0.0, "calls": 0})
+        entry["seconds"] += s["host_ms"] / 1e3
+        entry["calls"] += 1
+        if s["device_ms"] is not None:
+            entry["device_seconds"] = entry.get("device_seconds", 0.0) + s["device_ms"] / 1e3
+    return out
 
 
 def reset() -> None:
+    global _dropped
     with _lock:
-        _wall.clear()
-        _count.clear()
+        _spans.clear()
+        _dropped = 0
 
 
 def start_trace(log_dir: Optional[str] = None) -> bool:

@@ -1,4 +1,11 @@
-"""The port's profiler traces: ``utils.profiling.start_trace`` / ``stop_trace``.
+"""The port's spans, profiler ranges and traces (``utils.profiling``).
+
+Spans: ``stage`` records nested spans (ids, parents, one ``call`` id under
+each outermost span) into a bounded buffer that ``summary`` totals; device
+time only from timing events that have completed, and none while a stream
+captures; ``region`` opens no ``record_function`` without a profiler, and
+under one the decode chunk's ranges appear in the trace, on the spans'
+clock. Traces: ``start_trace`` / ``stop_trace``.
 
 The JAX package's ``start_trace(log_dir=None) -> bool`` / ``stop_trace()``
 on ``torch.profiler``: the directory comes from the argument or
@@ -26,6 +33,8 @@ import pytest
 import torch
 
 from rho_tts_tpu.utils import profiling as jprofiling
+from rho_tts_tpu_torch.models.qwen import PRESETS, QwenTTSModel
+from rho_tts_tpu_torch.models.qwen import model as qmodel
 from rho_tts_tpu_torch.utils import profiling
 from test_torch_port_parallel_ranks import within
 
@@ -179,3 +188,228 @@ def test_a_failed_stop_leaves_the_profiler_off(tmp_path):
     _work()
     profiling.stop_trace()
     assert len(_traces(tmp_path / "next")) == 1
+
+
+# ---------------------------------------------------------------------------
+# Spans and ranges
+# ---------------------------------------------------------------------------
+
+
+def _span(name):
+    return next(s for s in profiling.spans() if s["name"] == name)
+
+
+def test_spans_nest_with_their_parents_and_one_call_id():
+    profiling.reset()
+    with profiling.stage("outer", rows=2) as attrs:
+        with profiling.stage("mid"):
+            with profiling.stage("inner"):
+                pass
+        with profiling.stage("sibling"):
+            pass
+        attrs["frames"] = 7
+    with profiling.stage("next"):
+        pass
+    outer, mid, inner, sibling, nxt = (_span(n) for n in ("outer", "mid", "inner", "sibling",
+                                                          "next"))
+    assert outer["parent"] is None and outer["call"] == outer["id"]
+    assert mid["parent"] == outer["id"] and inner["parent"] == mid["id"]
+    assert sibling["parent"] == outer["id"]
+    assert {mid["call"], inner["call"], sibling["call"]} == {outer["id"]}
+    assert nxt["parent"] is None and nxt["call"] == nxt["id"] != outer["id"]
+    assert outer["attrs"] == {"rows": 2, "frames": 7}
+    assert outer["start_ns"] <= mid["start_ns"] <= inner["start_ns"] <= inner["end_ns"] \
+        <= mid["end_ns"] <= sibling["start_ns"] <= sibling["end_ns"] <= outer["end_ns"]
+    assert all(s["device_ms"] is None and not s["profiled"] for s in profiling.spans())
+    assert len({outer["thread"], nxt["thread"]}) == 1
+
+
+def test_a_span_is_kept_when_its_body_raises():
+    profiling.reset()
+    with pytest.raises(ValueError):
+        with profiling.stage("fails"):
+            raise ValueError("x")
+    with profiling.stage("after"):
+        pass
+    assert _span("fails")["end_ns"] >= _span("fails")["start_ns"]
+    assert _span("after")["parent"] is None  # the failed span left the stack
+
+
+def test_the_buffer_drops_its_oldest_spans_and_counts_them(monkeypatch):
+    profiling.reset()
+    monkeypatch.setattr(profiling, "MAX_SPANS", 3)
+    for i in range(5):
+        with profiling.stage(f"s{i}"):
+            pass
+    assert [s["name"] for s in profiling.spans()] == ["s2", "s3", "s4"]
+    assert profiling.dropped() == 2
+    profiling.reset()
+    assert profiling.spans() == [] and profiling.dropped() == 0
+
+
+def test_summary_is_computed_from_the_spans():
+    profiling.reset()
+    for _ in range(3):
+        _work()
+    spans = [s for s in profiling.spans() if s["name"] == "port-trace-stage"]
+    summary = profiling.summary()["port-trace-stage"]
+    assert summary["calls"] == 3 == len(spans)
+    assert summary["seconds"] == pytest.approx(sum(s["host_ms"] for s in spans) / 1e3)
+    assert "device_seconds" not in summary  # no CUDA context: no events
+
+
+class _FakeEvent:
+    """A timing event whose completion the test decides."""
+
+    done = False
+    made = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.recorded = False
+        _FakeEvent.made.append(self)
+
+    def record(self):
+        self.recorded = True
+
+    def query(self):
+        return _FakeEvent.done
+
+    def elapsed_time(self, end):
+        assert _FakeEvent.done, "read before completion"
+        return 2.5
+
+
+def test_device_time_is_read_only_once_the_end_event_completes(monkeypatch):
+    profiling.reset()
+    _FakeEvent.done, _FakeEvent.made = False, []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: pytest.fail("the recorder synchronised"))
+    with profiling.stage("on-card"):
+        pass
+    assert len(_FakeEvent.made) == 2 and all(e.recorded for e in _FakeEvent.made)
+    assert _span("on-card")["device_ms"] is None  # not complete: not read
+    _FakeEvent.done = True
+    assert _span("on-card")["device_ms"] == 2.5
+    assert profiling.summary()["on-card"]["device_seconds"] == pytest.approx(0.0025)
+
+
+def test_no_event_is_recorded_while_the_stream_captures(monkeypatch):
+    profiling.reset()
+    _FakeEvent.done, _FakeEvent.made = True, []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    with profiling.stage("captured"):
+        pass
+    assert _FakeEvent.made == [] and _span("captured")["device_ms"] is None
+
+
+def _tiny_int8():
+    return QwenTTSModel(PRESETS["tiny"], device="cpu", quantization="int8")
+
+
+def test_a_synthesize_call_records_its_stages_as_one_call(monkeypatch):
+    monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", "8")
+    profiling.reset()
+    m = _tiny_int8()
+    m.synthesize(["hello", "a second row"], min_frames=20, max_frames=20, seeds=[0, 1])
+    spans = profiling.spans()
+    assert [s["name"] for s in spans if s["parent"] is None] == ["qwen/model_init",
+                                                                "qwen/synthesize"]
+    call = _span("qwen/synthesize")
+    assert call["attrs"] == {"rows": 2, "frames": 25}  # 3 chunks of 8, and frame 0
+    inner = [s for s in spans if s["call"] == call["id"] and s["id"] != call["id"]]
+    names = [s["name"] for s in inner]
+    assert names[:2] == ["qwen/prompt_build", "qwen/prefill"]
+    assert names.count("qwen/decode_chunk") == 3 and names.count("qwen/done_check") == 2
+    assert {"qwen/fetch_done", "qwen/vocode"} <= set(names)
+    assert all(s["parent"] == call["id"] for s in inner)
+    assert all(s["attrs"] == {"steps": 8} for s in inner if s["name"] == "qwen/decode_chunk")
+    profiling.reset()
+    m.generate_codes(["hello"], min_frames=8, max_frames=8, seeds=[0])
+    call = _span("qwen/generate_codes")
+    assert call["attrs"] == {"rows": 1, "frames": 9}
+    assert _span("qwen/fetch_codes")["parent"] == call["id"]
+
+
+def test_fine_ranges_open_no_record_function_without_a_profiler(monkeypatch):
+    """The ranges inside the decode chunk cost a flag read without a profiler."""
+    real = qmodel._decode_chunk
+
+    def no_range(*args, **kwargs):
+        raise AssertionError("a range opened")
+
+    def guarded(*args, **kwargs):
+        with patch.object(torch.profiler, "record_function", no_range), \
+                patch.object(torch.autograd.profiler, "record_function", no_range), \
+                patch.object(torch._C._profiler, "_RecordFunctionFast", no_range):
+            return real(*args, **kwargs)
+
+    monkeypatch.setattr(qmodel, "_decode_chunk", guarded)
+    monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", "4")
+    _tiny_int8().generate_codes(["hello"], min_frames=4, max_frames=4, seeds=[0])
+    with patch.object(torch._C._profiler, "_RecordFunctionFast", no_range):
+        with profiling.region("talker/mlp"):
+            pass
+
+
+def _profiled_chunk(monkeypatch):
+    """One tiny int8 decode chunk under a CPU profiler, as a benchmark traces
+    one: the profiler starts inside the ``qwen/decode_chunk`` span."""
+    real, box = qmodel._decode_chunk, {}
+
+    def traced(*args, **kwargs):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = real(*args, **kwargs)
+        box["events"] = prof.profiler.kineto_results.events()
+        return out
+
+    monkeypatch.setattr(qmodel, "_decode_chunk", traced)
+    monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", "4")
+    profiling.reset()
+    _tiny_int8().generate_codes(["hello"], min_frames=4, max_frames=4, seeds=[0])
+    return box["events"]
+
+
+@on_one_thread
+def test_a_profiled_decode_chunk_holds_the_fine_ranges(monkeypatch):
+    names = {e.name() for e in _profiled_chunk(monkeypatch)}
+    assert {"qwen/chunk_prologue", "qwen/step", "qwen/embed", "talker/attention",
+            "talker/mlp", "quant/int8_matmul", "qwen/sample", "qwen/residuals"} <= names
+    # the chunk's span (opened before the profiler started) and its call are
+    # marked profiled; the prefill's is not
+    assert _span("qwen/decode_chunk")["profiled"] and _span("qwen/generate_codes")["profiled"]
+    assert not _span("qwen/prefill")["profiled"]
+
+
+@on_one_thread
+def test_span_stamps_agree_with_their_ranges_in_the_profile():
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            _work()
+    ranges = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "port-trace-stage"), key=lambda e: e.start_ns())
+    spans = [s for s in profiling.spans() if s["name"] == "port-trace-stage"]
+    assert len(ranges) == len(spans) == 3 and all(s["profiled"] for s in spans)
+    for e, s in zip(ranges, spans):
+        assert abs(e.start_ns() - s["start_ns"]) < 1e6
+        assert abs(e.start_ns() + e.duration_ns() - s["end_ns"]) < 1e6
+
+
+def test_the_benchmark_still_hooks_the_model():
+    """The batch cells' traffic wraps ``QwenTTSModel._generate_codes_arrays``
+    and the module's ``_decode_chunk(..., key_valid=, steps=)``."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmark import registry
+
+    registry.load_generator("closed_batch").hooks(qmodel)
