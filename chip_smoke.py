@@ -102,6 +102,10 @@ Phases, each fatal on failure:
     ``phase 14 <part> (<card>): {...}``. Each kernel's entry gains
     ``launches_host_layers``.
 
+From phase 4 on, a kernel's launch count includes the launches that the
+replays of a CUDA graph (the Qwen decode step) run, read from traces of
+each graph's first replays (:class:`GraphReplays`).
+
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit
 from nvidia-smi, and as its last line ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, without a CUDA device or without the
@@ -125,6 +129,7 @@ import logging
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -818,6 +823,90 @@ TEXTS = [
     "Numbers like 1,234 and dates such as March 3rd are read out in full by the front end.",
     "Every request in this batch shares one prefill and one chunked decode loop on the card.",
 ]
+
+
+#: the port's kernels in a trace (demangled names), by the wrapper that launches them
+KERNEL_NAMES = {
+    "prefill_gqa_attention": re.compile(r"\b(?:tc|simt)_prefill_kernel\b"),
+    "decode_gqa_attention": re.compile(r"\bsplit_decode_kernel\b"),
+    "int4_matmul": re.compile(r"\bgemv_mma_kernel\b|\bgemv_f32_kernel\b|\bmma_kernel<\d"),
+    "w8a8_matmul": re.compile(r"\bwgmma_kernel<|\bmma_kernel<\D"),
+}
+
+
+class GraphReplays:
+    """Adds the port's kernels that CUDA-graph replays run to each kernel's
+    ``launches``, so that every launch count of this script is of kernels
+    run, eagerly or by a graph.
+
+    A wrapper counts the launches it makes, not those it records into a
+    graph under capture. The first replays of each graph run under
+    ``torch.profiler`` until two traces agree on the port's kernels, by name
+    (a trace can lose an event: one of 140 once, in a whole run); those are
+    what each replay of the graph adds, the traced ones too (a graph
+    launches the same kernels every time). So the counts of a replayed
+    decode come from the device's trace, not from the model's code.
+    ``traces`` keeps each graph's agreed counts and its number of device
+    operations."""
+
+    TRIES = 4  # traced replays of a graph before its traces count as disagreeing
+
+    def __init__(self, kmods):
+        self.kmods = kmods
+        self.traces = []
+        self.replays = 0
+        self._replay = None
+
+    def __enter__(self):
+        self._replay = torch.cuda.CUDAGraph.replay
+        outer = self
+
+        def replay(graph):
+            state = graph.__dict__.setdefault("_smoke_kernels", {"counts": None, "seen": []})
+            if state["counts"] is not None:
+                outer._replay(graph)
+                outer._add(state["counts"], 1)
+            else:
+                outer._traced(graph, state)
+            outer.replays += 1
+
+        torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._replay
+
+    def _add(self, counts: dict, times: int) -> None:
+        for name, n in counts.items():
+            self.kmods[name].launches += n * times
+
+    def _traced(self, graph, state: dict) -> None:
+        from rho_tts_tpu_torch.utils import profiling
+
+        if profiling.profiler_active():
+            raise AssertionError("a graph's first replays ran under a profiler: its kernels "
+                                 "cannot be counted")
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            self._replay(graph)
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda]
+        counts = {k: sum(1 for n in names if pat.search(n)) for k, pat in KERNEL_NAMES.items()}
+        if not counts["decode_gqa_attention"]:
+            raise AssertionError(f"a graph's replay traced {len(names)} device operations, "
+                                 f"{counts} of the port's kernels")
+        seen = state["seen"]
+        seen.append((counts, len(names)))
+        agreed = [c for c, _ in seen[:-1] if c == counts]
+        if agreed:
+            state["counts"] = counts
+            self._add(counts, len(seen))
+            self.traces.append(dict(counts, device_ops=len(names), traced=len(seen)))
+        elif len(seen) >= self.TRIES:
+            raise AssertionError(f"{len(seen)} traced replays of one graph disagree: {seen}")
 
 
 class StageClock:
@@ -3682,8 +3771,10 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
        JAX package's sequence: a "restarted" error, the restarted worker's
        "Expected 'init'" (it is sent no ``INIT``), then "not running";
     c. ``profiling.start_trace`` / ``stop_trace`` around one ``synthesize``
-       of the batch for ``trace_frames`` steps: the written trace names
-       kernels 1 and 2 as often as their launch counters count;
+       of the batch for ``trace_frames`` steps, after a first call of the
+       shape captured its decode step: every traced chunk replays it, and
+       the written trace names kernels 1 and 2 as often as their launch
+       counters count;
     d. the UI's callbacks (``AppState``, no gradio) on a temporary config:
        ``generate_audio`` bit-equal to an in-process ``generate`` with the
        kwargs ``build_tts_kwargs`` gives, the history saved; a switch to
@@ -3809,7 +3900,12 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
     trace_dir = os.path.join(root, "trace")
     syn = dict(speaker="Vivian", min_frames=trace_frames, max_frames=trace_frames, top_k=50,
                seeds=list(range(len(TEXTS))))
+    # A first call of the shape captures its decode step (a new key traced
+    # would decode eagerly): the traced call replays it, on a card.
+    model.synthesize(TEXTS, **syn)
+    _sync(device)
     _zero(kmods)
+    profiling.reset()
     if not profiling.start_trace(trace_dir) or profiling.start_trace(trace_dir):
         raise AssertionError("phase 14 c: start_trace did not start exactly one trace")
     try:
@@ -3820,6 +3916,9 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
         profiling.stop_trace()
         stop_s = time.perf_counter() - t0
     launches_c = _launches(kmods)
+    modes = [sp["attrs"]["graph"] for sp in profiling.spans() if sp["name"] == "qwen/decode_chunk"]
+    if set(modes) != {"replay" if device == "cuda" else "eager"}:
+        raise AssertionError(f"phase 14 c: the traced call's decode chunks ran as {modes}")
     traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)
               if n.endswith(".pt.trace.json")]
     if len(traces) != 1:
@@ -3828,7 +3927,7 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
     counted = _count_trace_kernels(traces[0])
     c = {"frames": trace_frames, "trace_bytes": os.path.getsize(traces[0]),
          "stop_trace_s": stop_s, "parse_s": time.perf_counter() - t0, "launches": launches_c,
-         "trace_counts": counted}
+         "trace_counts": counted, "decode_chunks": modes}
     steps = -(-trace_frames // qmodel._chunk()) * qmodel._chunk()  # whole decode chunks
     c["decode_steps"] = steps
     want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps}
@@ -4022,37 +4121,41 @@ def main(argv=None) -> int:
         ref = check_against_cpu(qmodel, quantization, w8a8)
         log(f"phase 3 reference: {json.dumps(ref)}")
 
-    main_path = run_main_path(qmodel, qz, kmods)
-    log(f"phase 4 main path: {json.dumps(main_path)}")
-    int4_path = run_int4_path(qmodel, qz, kmods, os.path.join(os.path.dirname(src), "build"))
-    int4_path["int8_talker_weight_bytes"] = main_path["talker_weight_bytes"]
-    log(f"phase 5 int4 path: {json.dumps(int4_path)}")
-    w8a8_path = run_w8a8_prefill(qmodel, kmods, main_path["prefill_ms"])
-    log(f"phase 6 w8a8 prefill: {json.dumps(w8a8_path)}")
-    build_dir = os.path.join(os.path.dirname(src), "build")
-    gen_path = run_generate_path(qmodel, kmods, build_dir, smi)
-    log(f"phase 7 generate(): {json.dumps(gen_path)}")
-    val_path = run_validate_path(qmodel, kmods, build_dir, smi, gen_path)
-    log(f"phase 8 validate(): {json.dumps(val_path)}")
-    t0 = time.perf_counter()
-    serve_path = run_serving_path(qmodel, kmods, build_dir, smi, gen_path)
-    log(f"phase 9 serving: every part passed in {time.perf_counter() - t0:.1f} s, peak "
-        f"{serve_path['peak_mem_gb']:.2f} GB")
-    t0 = time.perf_counter()
-    cb_path = run_chatterbox_path(kmods, build_dir, smi)
-    log(f"phase 10 chatterbox: every part passed in {time.perf_counter() - t0:.1f} s, peak "
-        f"{cb_path['peak_mem_gb']:.2f} GB")
-    t0 = time.perf_counter()
-    train_path = run_training_path(qmodel, kmods, build_dir, smi)
-    log(f"phase 11 training: every part passed in {time.perf_counter() - t0:.1f} s")
-    mesh_path = run_parallel_path(qmodel, kmods, smi)
-    log(f"phase 12 meshes: every part passed in {mesh_path['wall_s']:.1f} s, peak "
-        f"{mesh_path['peak_mem_gb']:.2f} GB")
-    sharded_path = run_sharded_training_path(qmodel, kmods, build_dir, smi)
-    log(f"phase 13 sharded training: every part passed in {sharded_path['wall_s']:.1f} s, "
-        f"peak {sharded_path['e_walls']['peak_gb']:.2f} GB")
-    host_path = run_host_layers_path(qmodel, kmods, build_dir, smi, src)
-    log(f"phase 14 host layers: every part passed in {host_path['wall_s']:.1f} s")
+    # Every launch count below is of kernels run, a graph's replays included.
+    with GraphReplays(kmods) as replays:
+        main_path = run_main_path(qmodel, qz, kmods)
+        log(f"phase 4 main path: {json.dumps(main_path)}")
+        int4_path = run_int4_path(qmodel, qz, kmods, os.path.join(os.path.dirname(src), "build"))
+        int4_path["int8_talker_weight_bytes"] = main_path["talker_weight_bytes"]
+        log(f"phase 5 int4 path: {json.dumps(int4_path)}")
+        w8a8_path = run_w8a8_prefill(qmodel, kmods, main_path["prefill_ms"])
+        log(f"phase 6 w8a8 prefill: {json.dumps(w8a8_path)}")
+        build_dir = os.path.join(os.path.dirname(src), "build")
+        gen_path = run_generate_path(qmodel, kmods, build_dir, smi)
+        log(f"phase 7 generate(): {json.dumps(gen_path)}")
+        val_path = run_validate_path(qmodel, kmods, build_dir, smi, gen_path)
+        log(f"phase 8 validate(): {json.dumps(val_path)}")
+        t0 = time.perf_counter()
+        serve_path = run_serving_path(qmodel, kmods, build_dir, smi, gen_path)
+        log(f"phase 9 serving: every part passed in {time.perf_counter() - t0:.1f} s, peak "
+            f"{serve_path['peak_mem_gb']:.2f} GB")
+        t0 = time.perf_counter()
+        cb_path = run_chatterbox_path(kmods, build_dir, smi)
+        log(f"phase 10 chatterbox: every part passed in {time.perf_counter() - t0:.1f} s, peak "
+            f"{cb_path['peak_mem_gb']:.2f} GB")
+        t0 = time.perf_counter()
+        train_path = run_training_path(qmodel, kmods, build_dir, smi)
+        log(f"phase 11 training: every part passed in {time.perf_counter() - t0:.1f} s")
+        mesh_path = run_parallel_path(qmodel, kmods, smi)
+        log(f"phase 12 meshes: every part passed in {mesh_path['wall_s']:.1f} s, peak "
+            f"{mesh_path['peak_mem_gb']:.2f} GB")
+        sharded_path = run_sharded_training_path(qmodel, kmods, build_dir, smi)
+        log(f"phase 13 sharded training: every part passed in {sharded_path['wall_s']:.1f} s, "
+            f"peak {sharded_path['e_walls']['peak_gb']:.2f} GB")
+        host_path = run_host_layers_path(qmodel, kmods, build_dir, smi, src)
+        log(f"phase 14 host layers: every part passed in {host_path['wall_s']:.1f} s")
+    log(f"graph replays: {replays.replays}; the port's kernels in each graph's first, "
+        f"traced replays: {json.dumps(replays.traces)}")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),

@@ -9,9 +9,13 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
   prompt token lands on the same slot; prefill runs the talker over the
   whole prompt through the prefill attention kernel.
 * Decode runs in chunks of ``_chunk()`` steps; JAX's ``lax.scan`` becomes a
-  Python step loop of eager launches, each step running the talker (decode
-  attention kernel), seeded top-k Gumbel sampling and the residual code
-  predictor. The host checks cancellation and the lagged all-done flag
+  loop of one step function (:func:`_decode_step`), which runs the talker
+  (decode attention kernel), seeded top-k Gumbel sampling and the residual
+  code predictor on device-resident state alone. On a CUDA device the step
+  is captured once per key as a CUDA graph and replayed (:class:`_StepGraph`):
+  one graph launch a step in place of some two thousand kernel launches.
+  On the CPU and under tensor parallelism over several ranks it runs
+  eagerly. The host checks cancellation and the lagged all-done flag
   between chunks only.
 * The codec vocoder turns the codes into a 24 kHz waveform per length
   bucket; :meth:`QwenTTSModel.stream_chunks` vocodes a sliding window per
@@ -49,8 +53,11 @@ the decode layout. The vocoder runs the whole batch on every rank.
 
 from __future__ import annotations
 
+import collections
 import hashlib
+import math
 import os
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -58,6 +65,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.cuda import decode_attention as decode_attention_kernel
 from ...parallel.collectives import all_gather, all_reduce_max, all_reduce_sum, vocab_embed
 from ...utils import prng, profiling
 from ...utils.tokenizer import load_tokenizer
@@ -225,59 +233,339 @@ def _predict_residuals(params, cfg, h_last, tok0, tp=None):
     return torch.argmax(logits, dim=-1).T  # (B, Q)
 
 
+class _StepState:
+    """The device state one decode step reads and advances, for a chunk of
+    ``steps`` steps over ``b`` rows: every value that changes from step to
+    step lives here, so the step depends on no host value.
+
+    ``slot0`` (0-d) is the chunk's first cache slot and ``t`` (0-d) the
+    step's index in the chunk, which the step advances; ``rope_base`` ``(B,)``
+    the rows' RoPE positions at ``t = 0``; ``last_codes`` ``(B, nq)`` and
+    ``done`` ``(B,)`` the last frame; ``noise`` ``(steps, B, top_k)`` the
+    sampler noise and ``gate`` ``(steps,)`` the minimum-duration gate of each
+    step; ``temperature`` ``(B,)`` the rows' sampling temperatures; ``codes``
+    ``(B, steps, nq)`` and ``dones`` ``(B, steps)`` what each step emits.
+    """
+
+    def __init__(self, b: int, nq: int, steps: int, top_k: int, device):
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+
+        self.slot0 = empty((), torch.int64)
+        self.t = empty((), torch.int64)
+        self.rope_base = empty((b,), torch.int64)
+        self.last_codes = empty((b, nq), torch.int64)
+        self.done = empty((b,), torch.bool)
+        self.noise = empty((steps, b, top_k), torch.float32)
+        self.gate = empty((steps,), torch.bool)
+        self.temperature = empty((b,), torch.float32)
+        self.codes = empty((b, steps, nq), torch.int64)
+        self.dones = empty((b, steps), torch.bool)
+
+    def load(self, slot0: int, rope_base, last_codes, done, noise, gate, temperature) -> None:
+        """Write a chunk's inputs in place (fills and copies: no host wait)."""
+        self.slot0.fill_(slot0)
+        self.t.zero_()
+        self.rope_base.copy_(rope_base)
+        self.last_codes.copy_(last_codes)
+        self.done.copy_(done)
+        self.noise.copy_(noise)
+        self.gate.copy_(gate)
+        if isinstance(temperature, torch.Tensor):
+            self.temperature.copy_(temperature)
+        else:
+            self.temperature.fill_(float(np.float32(temperature)))
+
+
+def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepState,
+                 top_k: int, tp=None) -> None:
+    """One AR decode step on the chunk's device state ``st``: embed the last
+    frame, run the talker with its K/V written at slot ``slot0 + t``, sample
+    the primary code (EOS floored while the step's gate is set), predict the
+    residual codes, write the frame at step ``t`` of ``st.codes`` / ``st.dones``
+    and advance ``t``. Caches and ``key_valid`` are updated in place; ``tp``
+    as :func:`_prefill`. Capturable: it reads and writes only ``st``, the
+    caches, ``key_valid``, ``lm_head`` and the weights."""
+    nq = cfg.codec.n_codebooks
+    embs = params["audio_embed"]
+    t = st.t.view(1)
+    with profiling.region("qwen/embed"):
+        emb = embs[0][st.last_codes[:, 0]]
+        for q in range(1, nq):
+            emb = emb + embs[q][st.last_codes[:, q]]
+    slot = st.slot0 + st.t
+    h, _ = tfm.stack_forward(
+        params["talker"], cfg.talker, emb[:, None, :], (st.rope_base + st.t)[:, None],
+        kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
+        key_valid=key_valid, tp=tp, uniform_slot=True,
+    )
+    with profiling.region("qwen/sample"):
+        key_valid.index_fill_(1, slot.view(1), True)
+        h_last = h[:, -1]
+        logits = h_last.float() @ lm_head
+        # Enforce a minimum duration: -1e30 where the gate is set, untouched elsewhere.
+        logits[:, cfg.audio_eos] = torch.where(st.gate.index_select(0, t), -1e30,
+                                               logits[:, cfg.audio_eos])
+        tok0 = _sample_with_noise(logits, st.temperature, top_k, st.noise.index_select(0, t)[0])
+        newly_done = tok0 == cfg.audio_eos
+        tok0 = torch.where(st.done, cfg.audio_pad, tok0)
+    with profiling.region("qwen/residuals"):
+        res = _predict_residuals(params, cfg, h_last,
+                                 tok0.clamp_max(cfg.codec.codebook_size - 1), tp)
+        res = torch.where(st.done[:, None], 0, res)
+        codes = torch.cat([tok0[:, None], res], dim=-1)
+        st.done.logical_or_(newly_done)
+        st.codes.index_copy_(1, t, codes[:, None])
+        st.dones.index_copy_(1, t, st.done[:, None])
+        st.last_codes.copy_(codes)
+        st.t.add_(1)
+
+
 def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_base,
                   last_codes, done, seeds, temperature, step_base: int, min_frames: int,
-                  steps: int, top_k: int, tp=None):
+                  steps: int, top_k: int, tp=None, graph=None):
     """``steps`` AR decode steps from cache slot ``slot0``.
 
-    The JAX scan as a Python loop: caches and ``key_valid`` are updated in
-    place; ``tp`` as :func:`_prefill`. Returns ``(codes (B, steps, nq),
-    done (B, steps), cache_k, cache_v, key_valid, last_codes, done)``.
+    The JAX scan as a loop of :func:`_decode_step`: caches and ``key_valid``
+    are updated in place; ``tp`` as :func:`_prefill`. ``graph``, the
+    model's :class:`_StepGraph` for this key, replays the step as a CUDA
+    graph (captured by its first chunk, :meth:`_StepGraph.run`) over its own
+    buffers, the inputs copied in first; without it the step runs eagerly.
+    Returns ``(codes (B, steps, nq), done (B, steps), cache_k, cache_v,
+    key_valid, last_codes, done, mode)``, none of the tensors the graph's
+    state, which the next chunk overwrites; ``mode`` is how the steps ran:
+    ``"capture"``, ``"replay"`` or ``"eager"``.
     """
     with profiling.region("qwen/chunk_prologue"):
-        nq = cfg.codec.n_codebooks
-        embs = params["audio_embed"]
-        lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
+        b, nq = last_codes.shape
         # Every step's sampler noise in one batched pass: it depends only on
         # (seed, frame), both known before the chunk runs.
         frames = step_base + torch.arange(steps, dtype=torch.int64, device=seeds.device)
         noise = _gumbel_noise(seeds, frames[:, None], top_k)  # (steps, B, top_k)
-        codes_seq, done_seq = [], []
-    for t in range(steps):
-        with profiling.region("qwen/step"):
-            with profiling.region("qwen/embed"):
-                emb = embs[0][last_codes[:, 0]]
-                for q in range(1, nq):
-                    emb = emb + embs[q][last_codes[:, q]]
-            slot = slot0 + t
-            h, _ = tfm.stack_forward(
-                params["talker"], cfg.talker, emb[:, None, :], (rope_base + t)[:, None],
-                kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
-                key_valid=key_valid, tp=tp,
-            )
-            with profiling.region("qwen/sample"):
-                key_valid[:, slot] = True
-                h_last = h[:, -1]
-                logits = h_last.float() @ lm_head
-                if step_base + t < min_frames:  # enforce a minimum duration
-                    logits[:, cfg.audio_eos] = -1e30
-                tok0 = _sample_with_noise(logits, temperature, top_k, noise[t])
-                newly_done = tok0 == cfg.audio_eos
-                tok0 = torch.where(done, cfg.audio_pad, tok0)
-            with profiling.region("qwen/residuals"):
-                res = _predict_residuals(params, cfg, h_last,
-                                         tok0.clamp_max(cfg.codec.codebook_size - 1), tp)
-                res = torch.where(done[:, None], 0, res)
-                codes = torch.cat([tok0[:, None], res], dim=-1)
-                done = done | newly_done
-                codes_seq.append(codes)
-                done_seq.append(done)
-                last_codes = codes
-    return (
-        torch.stack(codes_seq, dim=1),
-        torch.stack(done_seq, dim=1),
-        cache_k, cache_v, key_valid, last_codes, done,
-    )
+        if graph is None:
+            st = _StepState(b, nq, steps, top_k, seeds.device)
+            lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
+        else:
+            st, lm_head = graph.state, graph.lm_head
+            lm_head.copy_(params["lm_head"])
+            cache_k, cache_v, key_valid = graph.adopt(cache_k, cache_v, key_valid)
+        st.load(slot0, rope_base, last_codes, done, noise, frames < min_frames, temperature)
+
+    def step():
+        _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st, top_k, tp)
+
+    mode = None if graph is None else graph.run(step, steps, params)
+    if mode is None:
+        mode = "eager"
+        for _ in range(steps):
+            with profiling.region("qwen/step"):
+                step()
+    out = (st.codes, st.dones, st.last_codes, st.done)
+    if graph is not None:  # the graph's state, which the next chunk overwrites
+        out = tuple(x.clone() for x in out)
+    codes, dones, last_codes, done = out
+    return codes, dones, cache_k, cache_v, key_valid, last_codes, done, mode
+
+
+#: decode steps captured as CUDA graphs, and graph replays, in this process
+graph_captures = 0
+graph_replays = 0
+
+#: decode-step graphs a model keeps, one a key, the least recently used dropped first
+GRAPH_KEYS = 4
+
+
+def _step_leaves(params) -> List[torch.Tensor]:
+    """The weights a decode step reads, in a fixed order."""
+    out: List[torch.Tensor] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        else:
+            out.append(node)
+
+    for key in ("audio_embed", "talker", "lm_head", "code_predictor"):
+        walk(params[key])
+    return out
+
+
+def _arena_layout(cfg_local, b: int, s: int, kv_dtype) -> Tuple[Tuple[int, ...], List[int]]:
+    """The shape of one KV cache of a key and the byte offsets of its two
+    caches, its ``key_valid`` and the end in an arena (each 256-aligned)."""
+    shape = (cfg_local.layers, b, s, cfg_local.kv_heads, cfg_local.head_dim)
+    sizes = [math.prod(shape) * torch.empty((), dtype=kv_dtype).element_size()] * 2 + [b * s]
+    offsets = [0]
+    for n in sizes:
+        offsets.append(offsets[-1] + _round_up(n, 256))
+    return shape, offsets
+
+
+class _StepGraph:
+    """One key's decode step as a CUDA graph, and every buffer it reads and writes.
+
+    The key is (rows, cache length, top_k, KV dtype, chunk steps) on one
+    model, so the weights and the quantization are fixed. The KV caches and
+    ``key_valid`` are views at the start of the model's arena
+    (:class:`_StepGraphs`), zeroed for each call (:meth:`fresh`); the
+    chunk's inputs go into ``state`` and the model's f32 ``lm_head`` before
+    the replays. The graph is captured and replayed on its device's one
+    decode stream (:func:`_decode_stream`), so graphs never run at the same
+    time and share the decode attention kernel's merge workspace, of which
+    the graph holds the one it captured.
+    """
+
+    def __init__(self, arena: torch.Tensor, cfg_local, b: int, s: int, kv_dtype, nq: int,
+                 steps: int, top_k: int, lm_head: torch.Tensor):
+        shape, at = _arena_layout(cfg_local, b, s, kv_dtype)
+        # Ordinary tensors, not inference tensors: a caller may run outside
+        # inference mode.
+        with torch.inference_mode(False):
+            self.cache_k, self.cache_v = (arena[at[i]:at[i + 1]].view(kv_dtype)
+                                          [:math.prod(shape)].view(shape) for i in (0, 1))
+            self.key_valid = arena[at[2]:at[2] + b * s].view(torch.bool).view(b, s)
+            self.state = _StepState(b, nq, steps, top_k, arena.device)
+        self.lm_head = lm_head
+        self.graph = None
+        self.leaves: List[torch.Tensor] = []  # the weights the graph was captured on
+        self.workspace: tuple = ()  # the decode attention workspace the graph captured
+
+    def fresh(self):
+        """The key's caches and ``key_valid``, zeroed (as new ones would be)."""
+        self.cache_k.zero_()
+        self.cache_v.zero_()
+        self.key_valid.zero_()
+        return self.cache_k, self.cache_v, self.key_valid
+
+    def adopt(self, cache_k, cache_v, key_valid):
+        """Copy caches other than the key's own into them (the prefill's
+        ``key_valid`` is a new tensor); returns the key's own."""
+        for own, given in ((self.cache_k, cache_k), (self.cache_v, cache_v),
+                           (self.key_valid, key_valid)):
+            if given is not own:
+                own.copy_(given)
+        return self.cache_k, self.cache_v, self.key_valid
+
+    def run(self, step, steps: int, params) -> Optional[str]:
+        """Run ``step`` ``steps`` times as the graph: replay it (``"replay"``),
+        or, where there is none for these weights, capture it first
+        (``"capture"``). None where no graph may be captured now
+        (:func:`_may_capture`): the caller runs the steps eagerly."""
+        global graph_captures, graph_replays
+        leaves = _step_leaves(params)
+        if self.graph is not None and any(a is not b for a, b in zip(leaves, self.leaves)):
+            self.graph = None  # the weights were replaced: their addresses are stale
+        if self.graph is None and not _may_capture():
+            return None
+        mode = "replay"
+        todo = steps
+        dev = self.cache_k.device
+        stream = _decode_stream(dev)
+        with torch.cuda.device(dev):
+            caller = torch.cuda.current_stream()
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                if self.graph is None:
+                    self._capture(step, leaves, stream)
+                    graph_captures += 1
+                    mode, todo = "capture", steps - 1  # the capture's warm-up ran the first step
+                for _ in range(todo):
+                    with profiling.region("qwen/step"):
+                        self.graph.replay()
+            caller.wait_stream(stream)
+        graph_replays += todo
+        return mode
+
+    def _capture(self, step, leaves, stream) -> None:
+        """Run ``step`` once eagerly on ``stream``, so the kernels' per-stream
+        workspaces and cuBLAS's exist before the capture records their
+        addresses, then capture one step (which runs nothing)."""
+        step()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            step()
+        self.workspace = decode_attention_kernel.workspace(self.cache_k.device, stream)
+        self.graph, self.leaves = graph, leaves
+
+
+def _may_capture() -> bool:
+    """No profiler records (a capture would put its synchronisation and
+    set-up into the traced stretch) and no graph is being captured around
+    the call."""
+    return not profiling.profiler_active() and not torch.cuda.is_current_stream_capturing()
+
+
+_decode_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _decode_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream every decode-step graph of ``device`` is captured and replayed on."""
+    if device not in _decode_streams:
+        _decode_streams[device] = torch.cuda.Stream(device)
+    return _decode_streams[device]
+
+
+class _StepGraphs:
+    """A model's decode-step graphs, by key, and the buffers they share.
+
+    One call holds the store at a time (:meth:`acquire` to :meth:`release`);
+    another call meanwhile gets no graph and decodes eagerly over new
+    buffers. Every key's KV caches and ``key_valid`` lie at the start of one
+    byte arena, as large as the largest key's need: the model keeps the
+    caches of one call, whatever mix of lengths came before. An arena
+    outgrown is freed with the graphs, which hold its addresses. At most
+    :data:`GRAPH_KEYS` graphs are kept; the f32 ``lm_head`` is one for all.
+    """
+
+    def __init__(self):
+        self._graphs: "collections.OrderedDict[tuple, _StepGraph]" = collections.OrderedDict()
+        self._arena: Optional[torch.Tensor] = None
+        self._lm_head: Optional[torch.Tensor] = None
+        self._held = False
+        self._lock = threading.Lock()
+
+    def acquire(self, cfg_local, b: int, s: int, kv_dtype, nq: int, steps: int, top_k: int,
+                lm_head: torch.Tensor) -> Optional[_StepGraph]:
+        """The key's graph, made if new, with the store held for the caller;
+        None while another call holds it."""
+        with self._lock:
+            if self._held:
+                return None
+            self._held = True
+        try:
+            return self._graph((b, s, top_k, kv_dtype, steps), cfg_local, nq, lm_head)
+        except BaseException:
+            self.release()
+            raise
+
+    def _graph(self, key: tuple, cfg_local, nq: int, lm_head: torch.Tensor) -> _StepGraph:
+        b, s, top_k, kv_dtype, steps = key
+        dev = lm_head.device
+        graph = self._graphs.get(key)
+        if graph is None:
+            need = _arena_layout(cfg_local, b, s, kv_dtype)[1][-1]
+            outgrown = self._arena is None or self._arena.numel() < need
+            if self._graphs and (outgrown or len(self._graphs) >= GRAPH_KEYS):
+                if dev.type == "cuda":  # no replay of a graph dropped here still runs
+                    _decode_stream(dev).synchronize()
+            if outgrown:
+                self._graphs.clear()
+                self._arena = None  # freed before the larger one is made
+                with torch.inference_mode(False):
+                    self._arena = torch.empty(need, dtype=torch.uint8, device=dev)
+            while len(self._graphs) >= GRAPH_KEYS:
+                self._graphs.popitem(last=False)
+            if self._lm_head is None:
+                with torch.inference_mode(False):
+                    self._lm_head = torch.empty(lm_head.shape, dtype=torch.float32, device=dev)
+            graph = self._graphs[key] = _StepGraph(self._arena, cfg_local, b, s, kv_dtype, nq,
+                                                   steps, top_k, self._lm_head)
+        self._graphs.move_to_end(key)
+        return graph
+
+    def release(self) -> None:
+        self._held = False
 
 
 def _vocode(params, cfg, codes):
@@ -390,6 +678,8 @@ class QwenTTSModel(nn.Module):
         self.tp_axis = None
         #: prefill's prompt axis over the mesh's ``model`` axis
         self.seq_parallel = False
+        #: the decode step's CUDA graphs and their buffers, by key
+        self._step_graphs = _StepGraphs()
 
     # -- Loading --------------------------------------------------------------
 
@@ -494,6 +784,33 @@ class QwenTTSModel(nn.Module):
         lays out a global cache; here the shard is allocated directly)."""
         return tfm.make_kv_cache(tfm.local_config(self.config.talker, self.tp_axis), b, s,
                                  device=self.device)
+
+    def _graphable(self) -> bool:
+        """Whether the decode step may be captured: on a CUDA device, unless
+        tensor parallelism splits the talker over several ranks (its
+        collectives are not captured)."""
+        return self.device.type == "cuda" and (self.tp_axis is None or self.tp_axis.size == 1)
+
+    def _decode_buffers(self, b: int, s: int, top_k: Optional[int] = None):
+        """``(cache_k, cache_v, key_valid, graph)`` for a decode of ``b`` local
+        rows over ``s`` cache slots, the buffers zeroed.
+
+        Where the step may be captured (:meth:`_graphable`) they are the
+        buffers of the model's :class:`_StepGraph` for the key (rows, cache
+        length, ``top_k``, KV dtype, chunk steps), the model's graphs held by
+        the call until ``self._step_graphs.release()``. Elsewhere, without
+        ``top_k``, or while another call holds the graphs, they are new and
+        ``graph`` is None: the eager loop.
+        """
+        if top_k is not None and self._graphable():
+            graph = self._step_graphs.acquire(
+                tfm.local_config(self.config.talker, self.tp_axis), b, s,
+                tfm.kv_cache_dtype(b, s), self.config.codec.n_codebooks, _chunk(), top_k,
+                self.params["lm_head"])
+            if graph is not None:
+                return (*graph.fresh(), graph)
+        cache_k, cache_v = self._shard_kv(b, s)
+        return cache_k, cache_v, torch.zeros((b, s), dtype=torch.bool, device=self.device), None
 
     def _all_done(self, done: torch.Tensor) -> torch.Tensor:
         """The batch's all-done flag, over every data rank's rows."""
@@ -676,72 +993,75 @@ class QwenTTSModel(nn.Module):
         n_chunks = _round_up(max_frames, _chunk()) // _chunk()
         s = p + n_chunks * _chunk()
 
-        cache_k, cache_v = self._shard_kv(b, s)
-        key_valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
-
-        with profiling.stage("qwen/prefill"):
-            logits, cache_k, cache_v, key_valid = _prefill(
-                self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
-                a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-                cache_k, cache_v, key_valid, tp=self.tp_axis,
-                sp_mesh=self.mesh if self.seq_parallel else None,
-            )
-
-        if seeds is None:
-            seeds_b = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, n_real)
-        else:
-            if len(seeds) != n_real:
-                raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
-            seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
-                torch.as_tensor(np.asarray(seeds, np.int64))
-        seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
-        if pad_rows:  # one seed per real row: padding never shifts a real row
-            seeds_b = torch.cat([seeds_b, seeds_b[:1].expand(pad_rows)])
-        seeds_b = self._shard(seeds_b)
-        if min_frames > 0:
-            logits[:, cfg.audio_eos] = -1e30
-        tok0 = _sample_token_seeded(
-            logits, seeds_b, torch.zeros((b,), dtype=torch.int64, device=dev), temperature, top_k
-        )
-        # Frame 0's residual codes are zeros, as in the JAX package.
-        first_codes = torch.cat(
-            [tok0[:, None], torch.zeros((b, cfg.codec.n_codebooks - 1), dtype=torch.int64,
-                                        device=dev)], dim=-1,
-        )
-        done = tok0 == cfg.audio_eos
-        rope_base = self._shard(torch.as_tensor(lens, dtype=torch.int64)).to(dev)
-
-        # Code/done chunks accumulate on the device; the early exit reads the
-        # PREVIOUS chunk's all-done flag, so the host never waits on the chunk
-        # it just enqueued (worst case one surplus chunk).
-        all_codes = [first_codes[:, None, :]]
-        all_done = [done[:, None]]
-        last_codes = first_codes
-        slot0 = p
-        prev_flag = None
-        for _ in range(n_chunks):
-            if cancel_check is not None:
-                cancel_check()
-            with profiling.stage("qwen/decode_chunk", steps=_chunk()):
-                (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                 done) = _decode_chunk(
-                    self.params, cfg, cache_k, cache_v, key_valid, slot0,
-                    rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                    slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis,
+        cache_k, cache_v, key_valid, graph = self._decode_buffers(b, s, top_k)
+        try:
+            with profiling.stage("qwen/prefill"):
+                logits, cache_k, cache_v, key_valid = _prefill(
+                    self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
+                    a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
+                    cache_k, cache_v, key_valid, tp=self.tp_axis,
+                    sp_mesh=self.mesh if self.seq_parallel else None,
                 )
-            all_codes.append(codes_chunk)
-            all_done.append(done_chunk)
-            slot0 += _chunk()
-            if prev_flag is not None:
-                with profiling.stage("qwen/done_check"):  # the host waits for the flag
-                    finished = bool(prev_flag)
-                if finished:
-                    break
-            prev_flag = self._all_done(done)
 
-        data = self._data_axis()
-        return (all_gather(torch.cat(all_codes, dim=1), 0, data),
-                all_gather(torch.cat(all_done, dim=1), 0, data), n_real)
+            if seeds is None:
+                seeds_b = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, n_real)
+            else:
+                if len(seeds) != n_real:
+                    raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
+                seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
+                    torch.as_tensor(np.asarray(seeds, np.int64))
+            seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
+            if pad_rows:  # one seed per real row: padding never shifts a real row
+                seeds_b = torch.cat([seeds_b, seeds_b[:1].expand(pad_rows)])
+            seeds_b = self._shard(seeds_b)
+            if min_frames > 0:
+                logits[:, cfg.audio_eos] = -1e30
+            tok0 = _sample_token_seeded(
+                logits, seeds_b, torch.zeros((b,), dtype=torch.int64, device=dev), temperature,
+                top_k,
+            )
+            # Frame 0's residual codes are zeros, as in the JAX package.
+            first_codes = torch.cat(
+                [tok0[:, None], torch.zeros((b, cfg.codec.n_codebooks - 1), dtype=torch.int64,
+                                            device=dev)], dim=-1,
+            )
+            done = tok0 == cfg.audio_eos
+            rope_base = self._shard(torch.as_tensor(lens, dtype=torch.int64)).to(dev)
+
+            # Code/done chunks accumulate on the device; the early exit reads the
+            # PREVIOUS chunk's all-done flag, so the host never waits on the chunk
+            # it just enqueued (worst case one surplus chunk).
+            all_codes = [first_codes[:, None, :]]
+            all_done = [done[:, None]]
+            last_codes = first_codes
+            slot0 = p
+            prev_flag = None
+            for _ in range(n_chunks):
+                if cancel_check is not None:
+                    cancel_check()
+                with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
+                    (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
+                     done, attrs["graph"]) = _decode_chunk(
+                        self.params, cfg, cache_k, cache_v, key_valid, slot0,
+                        rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
+                        slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
+                    )
+                all_codes.append(codes_chunk)
+                all_done.append(done_chunk)
+                slot0 += _chunk()
+                if prev_flag is not None:
+                    with profiling.stage("qwen/done_check"):  # the host waits for the flag
+                        finished = bool(prev_flag)
+                    if finished:
+                        break
+                prev_flag = self._all_done(done)
+
+            data = self._data_axis()
+            return (all_gather(torch.cat(all_codes, dim=1), 0, data),
+                    all_gather(torch.cat(all_done, dim=1), 0, data), n_real)
+        finally:
+            if graph is not None:
+                self._step_graphs.release()
 
     @torch.inference_mode()
     def synthesize(self, texts: Union[str, Sequence[str]], speaker: Optional[str] = None,
@@ -822,24 +1142,33 @@ class QwenTTSModel(nn.Module):
 
     # -- Single-stream streaming --------------------------------------------
 
-    def _single_prefill(self, text, speaker, language, ref_audio, ref_text, decode_slots: int):
+    def _single_prefill(self, text, speaker, language, ref_audio, ref_text, decode_slots: int,
+                        top_k: Optional[int] = None):
         """B=1 prompt build + prefill with ``decode_slots`` free cache slots.
 
-        Shared by the streaming and speculative single-stream paths.
-        Returns dict(logits (1, V), ck, cv, kv, p, len0).
+        Shared by the streaming and speculative single-stream paths. Returns
+        dict(logits (1, V), ck, cv, kv, p, len0, graph): with ``top_k`` the
+        caches may be a decode-step graph's (:meth:`_decode_buffers`), which
+        the caller releases.
         """
         cfg = self.config
         arrays, lens, p = self._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
         s = p + int(decode_slots)
-        cache_k, cache_v = self._shard_kv(1, s)  # one stream: the row stays on every rank
-        key_valid = torch.zeros((1, s), dtype=torch.bool, device=self.device)
+        # one stream: the row stays on every rank
+        cache_k, cache_v, key_valid, graph = self._decode_buffers(1, s, top_k)
         a = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
-        logits, ck, cv, kv = _prefill(
-            self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
-            a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-            cache_k, cache_v, key_valid, tp=self.tp_axis,
-        )
-        return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0])}
+        try:
+            logits, ck, cv, kv = _prefill(
+                self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
+                a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
+                cache_k, cache_v, key_valid, tp=self.tp_axis,
+            )
+        except BaseException:
+            if graph is not None:
+                self._step_graphs.release()
+            raise
+        return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0]),
+                "graph": graph}
 
     @torch.inference_mode()
     def stream_chunks(self, text: str, speaker: Optional[str] = None, language: str = "English",
@@ -875,69 +1204,76 @@ class QwenTTSModel(nn.Module):
             max_frames = int(np.clip(len(text) * 1.0 + 50, _chunk(), 1500))
         n_chunks = _round_up(max_frames, _chunk()) // _chunk()
         pre = self._single_prefill(text, speaker, language, ref_audio, ref_text,
-                                   n_chunks * _chunk())
-        p = pre["p"]
-        cache_k, cache_v, key_valid = pre["ck"], pre["cv"], pre["kv"]
-        logits = pre["logits"]
-        seeds_b = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
-        if min_frames > 0:
-            logits[:, cfg.audio_eos] = -1e30
-        tok0 = _sample_token_seeded(logits, seeds_b, torch.zeros((1,), dtype=torch.int64,
-                                                                  device=dev), temperature, top_k)
-        first_codes = torch.cat(
-            [tok0[:, None], torch.zeros((1, cfg.codec.n_codebooks - 1), dtype=torch.int64,
-                                        device=dev)], dim=-1,
-        )
-        done = tok0 == cfg.audio_eos
-        rope_base = torch.full((1,), pre["len0"], dtype=torch.int64, device=dev)
+                                   n_chunks * _chunk(), top_k)
+        graph = pre["graph"]
+        try:
+            p = pre["p"]
+            cache_k, cache_v, key_valid = pre["ck"], pre["cv"], pre["kv"]
+            logits = pre["logits"]
+            seeds_b = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
+            if min_frames > 0:
+                logits[:, cfg.audio_eos] = -1e30
+            tok0 = _sample_token_seeded(logits, seeds_b,
+                                        torch.zeros((1,), dtype=torch.int64, device=dev),
+                                        temperature, top_k)
+            first_codes = torch.cat(
+                [tok0[:, None], torch.zeros((1, cfg.codec.n_codebooks - 1), dtype=torch.int64,
+                                            device=dev)], dim=-1,
+            )
+            done = tok0 == cfg.audio_eos
+            rope_base = torch.full((1,), pre["len0"], dtype=torch.int64, device=dev)
 
-        hop = cfg.codec.hop
-        codes_np = first_codes.cpu().numpy()  # (1, nq), grows per chunk
-        finished = bool(codes_np[0, 0] == cfg.audio_eos)
-        emitted = 0  # frames already yielded
-        last_codes = first_codes
-        slot0 = p
+            hop = cfg.codec.hop
+            codes_np = first_codes.cpu().numpy()  # (1, nq), grows per chunk
+            finished = bool(codes_np[0, 0] == cfg.audio_eos)
+            emitted = 0  # frames already yielded
+            last_codes = first_codes
+            slot0 = p
 
-        def vocode_span(lo: int, hi: int, emit_from: int, emit_to: int):
-            """Vocode codes[lo:hi]; return samples for frames [emit_from, emit_to)."""
-            window = codes_np[lo:hi]
-            t = _round_up(window.shape[0], _chunk())
-            batch = np.pad(window, ((0, t - window.shape[0]), (0, 0)))[None]
-            with profiling.stage("qwen/vocode"):
-                wav = _vocode(self.params, cfg, torch.from_numpy(batch).to(dev))
-            return wav[0, (emit_from - lo) * hop: (emit_to - lo) * hop]
+            def vocode_span(lo: int, hi: int, emit_from: int, emit_to: int):
+                """Vocode codes[lo:hi]; return samples for frames [emit_from, emit_to)."""
+                window = codes_np[lo:hi]
+                t = _round_up(window.shape[0], _chunk())
+                batch = np.pad(window, ((0, t - window.shape[0]), (0, 0)))[None]
+                with profiling.stage("qwen/vocode"):
+                    wav = _vocode(self.params, cfg, torch.from_numpy(batch).to(dev))
+                return wav[0, (emit_from - lo) * hop: (emit_to - lo) * hop]
 
-        for _ in range(n_chunks):
-            if finished:
-                break
-            if cancel_check is not None:
-                cancel_check()
-            with profiling.stage("qwen/decode_chunk", steps=_chunk()):
-                (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                 done) = _decode_chunk(
-                    self.params, cfg, cache_k, cache_v, key_valid, slot0,
-                    rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                    slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis,
-                )
-            slot0 += _chunk()
-            cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()
-            hit = np.nonzero(dd)[0]
-            if hit.size:
-                cc = cc[: int(hit[0]) + 1]
-                finished = True
-            codes_np = np.concatenate([codes_np, cc])
-            if finished and codes_np.shape[0] > 1 and codes_np[-1, 0] >= cfg.codec.codebook_size:
-                codes_np = codes_np[:-1]  # drop the EOS frame itself
-            total = codes_np.shape[0]
+            for _ in range(n_chunks):
+                if finished:
+                    break
+                if cancel_check is not None:
+                    cancel_check()
+                with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
+                    (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
+                     done, attrs["graph"]) = _decode_chunk(
+                        self.params, cfg, cache_k, cache_v, key_valid, slot0,
+                        rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
+                        slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
+                    )
+                slot0 += _chunk()
+                cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()
+                hit = np.nonzero(dd)[0]
+                if hit.size:
+                    cc = cc[: int(hit[0]) + 1]
+                    finished = True
+                codes_np = np.concatenate([codes_np, cc])
+                if (finished and codes_np.shape[0] > 1
+                        and codes_np[-1, 0] >= cfg.codec.codebook_size):
+                    codes_np = codes_np[:-1]  # drop the EOS frame itself
+                total = codes_np.shape[0]
 
-            safe = total if finished else max(total - context_frames, 0)
-            if safe > emitted:
+                safe = total if finished else max(total - context_frames, 0)
+                if safe > emitted:
+                    lo = max(emitted - context_frames, 0)
+                    piece = vocode_span(lo, total, emitted, safe)
+                    emitted = safe
+                    yield piece, self.sample_rate
+
+            if emitted < codes_np.shape[0]:  # final flush (max_frames reached)
+                total = codes_np.shape[0]
                 lo = max(emitted - context_frames, 0)
-                piece = vocode_span(lo, total, emitted, safe)
-                emitted = safe
-                yield piece, self.sample_rate
-
-        if emitted < codes_np.shape[0]:  # final flush (max_frames reached)
-            total = codes_np.shape[0]
-            lo = max(emitted - context_frames, 0)
-            yield vocode_span(lo, total, emitted, total), self.sample_rate
+                yield vocode_span(lo, total, emitted, total), self.sample_rate
+        finally:
+            if graph is not None:
+                self._step_graphs.release()

@@ -8,8 +8,10 @@ are stacked ``(L, ...)`` as in ``init_stack``.
 
 The cached path is ported with the modes serving uses: a batch-uniform
 or per-row (``(B,)``) write slot, ``slot_causal=False`` for ring caches and
-``block_causal`` for speculative verify. Attention goes through the port's
-kernels: a prefill into an empty cache (T > 1) runs
+``block_causal`` for speculative verify. A batch-uniform slot may also stay
+on the device (``uniform_slot``), the mode of a decode step captured as a
+CUDA graph: no host value changes from step to step. Attention goes through
+the port's kernels: a prefill into an empty cache (T > 1) runs
 ``ops.cuda.attention.fused_gqa_attention`` over the fresh q/k/v, and every
 T == 1 step runs ``ops.cuda.decode_attention.decode_gqa_attention`` over
 the cache with the complete ``(B, S)`` mask, built once per forward. On
@@ -323,7 +325,7 @@ def _block_forward_cached(
     ck_all: torch.Tensor,  # (L, B, S, Hkv, D), written in place
     cv_all: torch.Tensor,
     layer: int,
-    slot,  # int (batch-uniform) or (B,) tensor of per-row write columns
+    slot,  # int or 0-d tensor (batch-uniform), or (B,) tensor of per-row write columns
     attn_mask: Optional[torch.Tensor],  # (B, T) validity of the new tokens
     mask: Optional[torch.Tensor],  # (B, S) when T == 1, (B, 1, T, S) when T > 1
     tp=None,
@@ -347,6 +349,10 @@ def _block_forward_cached(
         if isinstance(slot, int):
             ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
             cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
+        elif slot.dim() == 0:  # one device slot for the batch, inside the cache
+            cols = _slot_columns(slot, t)
+            _write_columns(ck_all[layer], cols, k)
+            _write_columns(cv_all[layer], cols, v)
         else:  # per-row columns; out-of-range columns drop
             cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
             scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
@@ -373,11 +379,25 @@ def _block_forward_cached(
         return _mlp(params, cfg, x, tp)
 
 
+def _slot_columns(slot: torch.Tensor, t: int) -> torch.Tensor:
+    """The ``(T,)`` columns ``[slot, slot + T)`` of a 0-d device slot."""
+    return slot.view(1) if t == 1 else slot + torch.arange(t, device=slot.device)
+
+
+def _write_columns(buf: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> None:
+    """``buf[:, cols] = vals`` in place by one ``index_copy_``; ``buf`` ``(B, S, ...)``,
+    ``vals`` ``(B, T, ...)`` in any dtype (converted to ``buf``'s)."""
+    vals = vals.to(buf.dtype)
+    if buf.dtype == torch.float8_e4m3fn:  # moved as bytes
+        buf, vals = buf.view(torch.uint8), vals.view(torch.uint8)
+    buf.index_copy_(1, cols, vals)
+
+
 def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, block_causal):
     """The complete key mask of every layer: ``(B, S)`` for T == 1, else
     ``(B, 1, T, S)``. The new columns count as valid by ``attn_mask``."""
     key_pos = torch.arange(s, device=device)
-    per_row = not isinstance(slot, int)
+    per_row = not isinstance(slot, int) and slot.dim() == 1
     slot_b = slot[:, None] if per_row else slot  # broadcastable against (B, S)
     valid = None
     if key_valid is not None:
@@ -387,8 +407,10 @@ def _attention_mask(b, t, s, slot, device, attn_mask, key_valid, slot_causal, bl
         if per_row:
             scatter_rows(valid, slot[:, None] + torch.arange(t, device=device)[None, :],
                          new_valid)
-        else:
+        elif isinstance(slot, int):
             valid[:, slot : slot + t] = new_valid
+        else:
+            _write_columns(valid, _slot_columns(slot, t), new_valid)
     if t == 1:
         if slot_causal:
             causal = (key_pos[None, :] <= slot_b)
@@ -428,6 +450,7 @@ def stack_forward(
     block_causal: bool = False,
     sp_mesh=None,
     tp=None,
+    uniform_slot: bool = False,
 ):
     """Run the block stack, over the stacked caches or without them.
 
@@ -442,11 +465,15 @@ def stack_forward(
 
     ``cache_len`` is a Python int (a slot shared by the batch), or a tensor:
     0-d (a shared slot on the device) or ``(B,)`` per-row write columns,
-    whose out-of-range columns drop. A prefill chunk (T > 1) into an empty
-    cache with ``fused_prefill=True`` runs the prefill kernel; T == 1 runs
-    the decode kernel under the complete ``(B, S)`` mask; other T > 1
-    forwards (speculative verify) run plain masked attention, as the JAX
-    package's einsum branch does. ``slot_causal=False`` leaves
+    whose out-of-range columns drop. ``uniform_slot=True`` keeps a 0-d
+    ``cache_len`` one slot for the batch, whose columns the caller keeps
+    inside the cache: each cache write is one ``index_copy_`` at it and the
+    mask compares with it, with no per-row expansion (a decode step
+    captured as a CUDA graph reads its slot from the device). A prefill
+    chunk (T > 1) into an empty cache with ``fused_prefill=True`` runs the
+    prefill kernel; T == 1 runs the decode kernel under the complete
+    ``(B, S)`` mask; other T > 1 forwards (speculative verify) run plain
+    masked attention, as the JAX package's einsum branch does. ``slot_causal=False`` leaves
     ``key_valid`` as the only gate (ring caches); ``block_causal`` restores
     causality inside the newly written block.
 
@@ -504,9 +531,11 @@ def stack_forward(
     s = ck_all.shape[2]
     if isinstance(cache_len, torch.Tensor):
         slot = cache_len.to(torch.int64)
-        if slot.dim() == 0:
+        if uniform_slot and slot.dim() != 0:
+            raise ValueError(f"uniform_slot: cache_len {tuple(cache_len.shape)} is not 0-d")
+        if slot.dim() == 0 and not uniform_slot:
             slot = slot.expand(b)
-        if slot.shape != (b,):
+        if slot.dim() and slot.shape != (b,):
             raise ValueError(f"cache_len {tuple(cache_len.shape)}: expected () or ({b},)")
     else:
         slot = int(cache_len or 0)

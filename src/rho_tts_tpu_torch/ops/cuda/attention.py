@@ -20,7 +20,8 @@ average V and stay finite. See the source for the details.
 Dispatch: CPU tensors take :func:`reference_gqa_attention`; CUDA tensors
 launch the kernel or raise. Inputs that require grad under grad mode raise on
 either device (``check_no_autograd``): the kernel has no backward.
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches, not those recorded into a CUDA
+graph under capture, which run when the graph is replayed.
 """
 
 from __future__ import annotations
@@ -160,7 +161,8 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
         )
         if rc != 0:
             raise RuntimeError(f"prefill attention kernel launch failed: cudaError_t {rc}")
-        launches += 1
+        if not torch.cuda.is_current_stream_capturing():  # a graph's node runs on replay
+            launches += 1
         return out
 
 

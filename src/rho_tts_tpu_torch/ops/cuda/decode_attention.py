@@ -22,10 +22,13 @@ probabilities to bf16 for f8 caches only).
 Dispatch: CPU tensors take :func:`reference_decode_attention`; CUDA tensors
 launch the kernel or raise. Inputs that require grad under grad mode raise on
 either device (``check_no_autograd``): the kernel has no backward.
-``launches`` counts the kernel's launches. The
-merge's workspace and tickets are kept per (device, stream) and the tickets
-reset themselves, so launches on several streams of one device do not
-share them.
+``launches`` counts the kernel's launches, not those recorded into a CUDA
+graph under capture, which run when the graph is replayed. The merge's
+workspace and tickets are kept per (device, stream) and the tickets reset
+themselves, so launches on several streams of one device do not share them.
+A graph that captured launches replays them over the workspace of the
+stream it was captured on (:func:`workspace`): it keeps that workspace, and
+replays on that one stream.
 """
 
 from __future__ import annotations
@@ -122,6 +125,14 @@ def _workspace(device: torch.device, stream: int, floats: int, tickets: int) -> 
     return buf[2], buf[3]
 
 
+def workspace(device: torch.device, stream: "torch.cuda.Stream") -> tuple:
+    """The merge's workspace and tickets that launches on ``stream`` use now
+    (none before the first): a CUDA graph captured on ``stream`` holds them,
+    as a larger call would replace them."""
+    buf = _buffers.get((device, stream.cuda_stream))
+    return () if buf is None else buf[:2]
+
+
 def _check(q, k, v, mask):
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and mask.device == q.device):
@@ -213,5 +224,6 @@ def decode_gqa_attention(q, k, v, mask):
         )
         if rc != 0:
             raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")
-        launches += 1
+        if not torch.cuda.is_current_stream_capturing():  # a graph's node runs on replay
+            launches += 1
         return out

@@ -27,7 +27,8 @@ order of the sums only).
 Dispatch: CPU tensors take :func:`reference_int4_matmul`; CUDA tensors
 launch the kernel or raise. Inputs that require grad under grad mode raise on
 either device (``check_no_autograd``): the kernel has no backward.
-``launches`` counts the kernel's launches. The
+``launches`` counts the kernel's launches, not those recorded into a CUDA
+graph under capture, which run when the graph is replayed. The
 kernel keeps no state between launches, so products on several streams
 never share anything.
 """
@@ -190,5 +191,6 @@ def int4_matmul(x, q4, s):
         if rc != 0:
             _check(x.reshape(-1, x.shape[-1]), q4, s)  # names a per-call fault (alignment) if any
             raise RuntimeError(f"int4 matmul kernel launch failed: cudaError_t {rc}")
-        launches += 1
+        if not torch.cuda.is_current_stream_capturing():  # a graph's node runs on replay
+            launches += 1
         return out

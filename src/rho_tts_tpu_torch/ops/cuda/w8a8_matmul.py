@@ -21,7 +21,8 @@ so kernel and plain version agree bit for bit. Unlike the Pallas kernel's
 Dispatch: CPU tensors take :func:`reference_w8a8_matmul`; CUDA tensors
 launch the kernel or raise. Inputs that require grad under grad mode raise on
 either device (``check_no_autograd``): the kernel has no backward.
-``launches`` counts the kernel's launches.
+``launches`` counts the kernel's launches, not those recorded into a CUDA
+graph under capture, which run when the graph is replayed.
 """
 
 from __future__ import annotations
@@ -144,5 +145,6 @@ def w8a8_matmul(xq, sx, q, ws, out_dtype):
         if rc != 0:
             _check(xq, sx, q, ws, out_dtype)  # names a per-call fault (alignment) if there is one
             raise RuntimeError(f"w8a8 matmul kernel launch failed: cudaError_t {rc}")
-        launches += 1
+        if not torch.cuda.is_current_stream_capturing():  # a graph's node runs on replay
+            launches += 1
         return out

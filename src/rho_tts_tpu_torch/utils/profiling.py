@@ -14,7 +14,8 @@ the stages of a call and its chunks, about 25 spans in a 192-frame
 * ``profiled``: whether a profiler was active at its entry or exit, or
   while a :func:`region` ran inside it;
 * the ``attrs`` passed (the ``with`` statement yields them, so a stage can
-  add what it learns: ``qwen/synthesize`` its ``frames``);
+  add what it learns: ``qwen/synthesize`` its ``frames``, ``qwen/decode_chunk``
+  its ``graph``);
 * once the process has a CUDA context, two timing events recorded on the
   current stream at entry and exit, read as ``device_ms``: the stream's
   time from reaching the first to reaching the second.
@@ -28,9 +29,10 @@ by name and :func:`reset` clears them.
 
 Always-on spans: ``qwen/model_init``, ``qwen/synthesize`` and
 ``qwen/generate_codes`` (the calls, attrs ``rows`` and ``frames``),
-``qwen/prompt_build``, ``qwen/prefill``, ``qwen/decode_chunk`` (attr
-``steps``), ``qwen/done_check`` (the host's wait on the lagged all-done
-flag), ``qwen/fetch_done``, ``qwen/fetch_codes``, ``qwen/vocode``, and the
+``qwen/prompt_build``, ``qwen/prefill``, ``qwen/decode_chunk`` (attrs
+``steps`` and ``graph``: ``"capture"``, ``"replay"`` or ``"eager"``),
+``qwen/done_check`` (the host's wait on the lagged all-done flag),
+``qwen/fetch_done``, ``qwen/fetch_codes``, ``qwen/vocode``, and the
 ``serve/``, ``chatterbox/``, ``generate/``, ``validate/`` and ``dsp/``
 stages of the other paths.
 
@@ -138,6 +140,11 @@ def stage(name: str, **attrs) -> Iterator[Dict]:
         span.profiled = span.profiled or _autograd_profiler._is_profiler_enabled
         span.events = (start, end) if end is not None else None
         _keep(span)
+
+
+def profiler_active() -> bool:
+    """Whether a ``torch.profiler`` session is recording."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def _keep(span: _Span) -> None:

@@ -328,12 +328,31 @@ def test_a_synthesize_call_records_its_stages_as_one_call(monkeypatch):
     assert names.count("qwen/decode_chunk") == 3 and names.count("qwen/done_check") == 2
     assert {"qwen/fetch_done", "qwen/vocode"} <= set(names)
     assert all(s["parent"] == call["id"] for s in inner)
-    assert all(s["attrs"] == {"steps": 8} for s in inner if s["name"] == "qwen/decode_chunk")
+    assert all(s["attrs"] == {"steps": 8, "graph": "eager"}
+               for s in inner if s["name"] == "qwen/decode_chunk")
     profiling.reset()
     m.generate_codes(["hello"], min_frames=8, max_frames=8, seeds=[0])
     call = _span("qwen/generate_codes")
     assert call["attrs"] == {"rows": 1, "frames": 9}
     assert _span("qwen/fetch_codes")["parent"] == call["id"]
+
+
+def test_cpu_decode_chunks_run_eagerly_and_their_spans_say_so(monkeypatch):
+    """On the CPU the decode step is never captured: every ``qwen/decode_chunk``
+    span, of a batch call and of a stream, carries ``graph="eager"``, the
+    graph counters stay 0 and the model keeps no graph, nor an arena."""
+    monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", "8")
+    profiling.reset()
+    m = _tiny_int8()
+    m.generate_codes(["hello"], min_frames=16, max_frames=16, seeds=[0])
+    assert len(list(m.stream_chunks("hello", min_frames=16, max_frames=16, seed=0,
+                                    context_frames=4))) >= 2
+    chunks = [s for s in profiling.spans() if s["name"] == "qwen/decode_chunk"]
+    assert len(chunks) == 4
+    assert all(s["attrs"] == {"steps": 8, "graph": "eager"} for s in chunks)
+    assert qmodel.graph_captures == qmodel.graph_replays == 0
+    assert not m._step_graphs._graphs and m._step_graphs._arena is None
+    assert not profiling.profiler_active()
 
 
 def test_fine_ranges_open_no_record_function_without_a_profiler(monkeypatch):

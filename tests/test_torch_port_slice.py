@@ -98,12 +98,18 @@ def _pair(params, quant):
 
 
 @pytest.mark.parametrize(
-    "quant,w8a8_prefill",
-    [(q, q) for q in (None, "int8", "int4", "int8-w8a8")],
-    ids=["dense", "int8", "int4", "int8-w8a8"],
+    "quant,w8a8_prefill,chunk",
+    [(q, q, None) for q in (None, "int8", "int4", "int8-w8a8")]
+    # Chunks of 16 frames: the minimum duration (20 frames) ends inside the
+    # second, whose device-resident gate floors EOS for its first 3 steps only.
+    + [(q, None, "16") for q in (None, "int8")],
+    ids=["dense", "int8", "int4", "int8-w8a8", "dense-chunk16", "int8-chunk16"],
     indirect=["w8a8_prefill"],
 )
-def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, w8a8_prefill, quant):
+def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, w8a8_prefill, quant, chunk,
+                                monkeypatch):
+    if chunk is not None:
+        monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", chunk)
     jm, tm = _pair(fp32_params, quant)
     ref = jm.generate_codes(TEXTS, top_k=1, seeds=[0, 1], **GEN)
     ours = tm.generate_codes(TEXTS, top_k=1, seeds=[0, 1], **GEN)
@@ -113,28 +119,49 @@ def test_greedy_codes_identical(fp32_params, jax_prefill_kernel, w8a8_prefill, q
 
 
 @pytest.mark.parametrize(
-    "quant,kw,w8a8_prefill",
+    "quant,kw,w8a8_prefill,chunk,first",
     [
-        ("int8", dict(GEN, top_k=8, seeds=[11, 12]), None),
+        ("int8", dict(GEN, top_k=8, seeds=[11, 12]), None, None, None),
         # Every token may be drawn: both rows sample EOS (frames 64 and 94)
         # and the lagged all-done flag stops the loop a chunk early.
-        (None, dict(GEN, min_frames=4, max_frames=256, top_k=67, seeds=[2, 3]), None),
-        ("int4", dict(GEN, top_k=8, seeds=[11, 12]), None),
-        ("int8-w8a8", dict(GEN, top_k=8, seeds=[11, 12]), "int8-w8a8"),
+        (None, dict(GEN, min_frames=4, max_frames=256, top_k=67, seeds=[2, 3]), None, None,
+         None),
+        ("int4", dict(GEN, top_k=8, seeds=[11, 12]), None, None, None),
+        ("int8-w8a8", dict(GEN, top_k=8, seeds=[11, 12]), "int8-w8a8", None, None),
+        # The minimum duration ends inside the third chunk of 32 frames: the
+        # EOS row 0 draws at frame 64 without it is floored there.
+        (None, dict(GEN, min_frames=70, max_frames=128, top_k=67, seeds=[2, 3]), None, "32",
+         None),
+        # One model serves a greedy call, then a sampled one: the second
+        # call samples at its own temperature, not at the first call's.
+        ("int8", dict(GEN, top_k=8, seeds=[11, 12]), None, None, dict(temperature=0.0)),
+        (None, dict(GEN, top_k=8, seeds=[11, 12]), None, None, dict(temperature=0.0)),
     ],
-    ids=["int8-top8", "dense-eos", "int4-top8", "int8-w8a8-top8"],
+    ids=["int8-top8", "dense-eos", "int4-top8", "int8-w8a8-top8", "dense-eos-min-frames-chunk32",
+         "int8-greedy-then-top8", "dense-greedy-then-top8"],
     indirect=["w8a8_prefill"],
 )
 def test_sampled_codes_and_waveforms_identical(fp32_params, jax_prefill_kernel, w8a8_prefill,
-                                               quant, kw):
+                                               quant, kw, chunk, first, monkeypatch):
     """Seeded top-k sampling: identical codes; waveforms 1e-4 (fp32 vocoder)."""
+    if chunk is not None:
+        monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", chunk)
     jm, tm = _pair(fp32_params, quant)
+    if first is not None:
+        ref_first = jm.generate_codes(TEXTS, **dict(kw, **first))
+        ours_first = tm.generate_codes(TEXTS, **dict(kw, **first))
+        for o, r in zip(ours_first, ref_first):
+            np.testing.assert_array_equal(o, np.asarray(r))
     ref_codes = jm.generate_codes(TEXTS, **kw)
     ours_codes = tm.generate_codes(TEXTS, **kw)
     for o, r in zip(ours_codes, ref_codes):
         np.testing.assert_array_equal(o, np.asarray(r))
-    if kw["top_k"] == 67:
+    if kw["top_k"] == 67 and kw["min_frames"] == 4:
         assert [len(c) for c in ours_codes] == [64, 94]  # the EOS path really ran
+    if kw["min_frames"] == 70:
+        assert min(len(c) for c in ours_codes) >= 70  # the gate floored frame 64's EOS
+    if first is not None:  # the sampled codes are not the greedy ones
+        assert any(not np.array_equal(o, f) for o, f in zip(ours_codes, ours_first))
     ref_wav, sr = jm.synthesize(TEXTS, **kw)
     ours_wav, tsr = tm.synthesize(TEXTS, **kw)
     assert tsr == sr

@@ -223,6 +223,62 @@ def test_verify_attention_primitives_match_jax(kv_dtype):
     np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("t", [1, 3])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_a_device_slot_is_the_int_slot(kv_dtype, t):
+    """A 0-d device slot under ``uniform_slot`` (the captured decode step's
+    mode) writes the same cache bytes, builds the same key mask and returns
+    the same hidden states as the same slot given as a Python int."""
+    _, _, tcfg, tparams = _params(False)
+    rng = np.random.default_rng(6)
+    b, s, slot = 3, 24, 9
+    dt = getattr(torch, kv_dtype)
+    shape = (CFG["layers"], b, s, CFG["kv_heads"], CFG["head_dim"])
+    ck0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
+    cv0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dt)
+    kv = torch.from_numpy(rng.random((b, s)) < 0.6)
+    x = torch.from_numpy((rng.standard_normal((b, t, CFG["hidden"])) * 0.5).astype(np.float32))
+    pos = torch.from_numpy(rng.integers(0, 40, (b, 1)) + np.arange(t)[None, :])
+    out = {}
+    for name, cache_len, kw in (("int", slot, {}),
+                                ("device", torch.tensor(slot), {"uniform_slot": True})):
+        ck, cv = ck0.clone(), cv0.clone()
+        h, _ = ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=(ck, cv), cache_len=cache_len,
+                                  key_valid=kv, **kw)
+        mask = ttfm._attention_mask(b, t, s, cache_len, "cpu", None, kv, True, False)
+        out[name] = (h, ck.view(torch.uint8), cv.view(torch.uint8), mask)
+    for ours, ref in zip(out["device"], out["int"]):
+        assert ours.shape == ref.shape and torch.equal(ours, ref)
+    assert not torch.equal(out["int"][1], ck0.view(torch.uint8))  # the slot was written
+    with pytest.raises(ValueError, match="not 0-d"):
+        ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=(ck0.clone(), cv0.clone()),
+                           cache_len=torch.tensor([slot] * b), key_valid=kv, uniform_slot=True)
+
+
+@pytest.mark.parametrize("cache_len", [[5, 24, 30], 24], ids=["per-row", "0-d"])
+def test_slots_without_uniform_slot_still_drop_out_of_range_columns(cache_len):
+    """Without ``uniform_slot`` a 0-d tensor slot is expanded per row as before,
+    and a per-row slot past the cache writes nothing: its row's caches keep
+    every byte, the in-range row's slot alone changes."""
+    _, _, tcfg, tparams = _params(False)
+    rng = np.random.default_rng(7)
+    b, s = 3, 24
+    shape = (CFG["layers"], b, s, CFG["kv_heads"], CFG["head_dim"])
+    ck0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    cv0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ck, cv = ck0.clone(), cv0.clone()
+    x = torch.from_numpy((rng.standard_normal((b, 1, CFG["hidden"])) * 0.5).astype(np.float32))
+    pos = torch.zeros((b, 1), dtype=torch.int64)
+    kv = torch.ones((b, s), dtype=torch.bool)
+    ttfm.stack_forward(tparams, tcfg, x, pos, kv_caches=(ck, cv),
+                       cache_len=torch.tensor(cache_len), key_valid=kv, slot_causal=False)
+    changed = (ck != ck0).flatten(3).any(-1).any(0)  # (B, S): columns written
+    want = torch.zeros((b, s), dtype=torch.bool)
+    if isinstance(cache_len, list):
+        want[0, 5] = True
+    assert torch.equal(changed, want) and torch.equal((cv != cv0).flatten(3).any(-1).any(0), want)
+
+
 def test_scatter_rows_drops_out_of_range_columns():
     """Dropped entries leave every other column as it was; a row whose
     columns all fall outside keeps its contents."""
