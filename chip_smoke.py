@@ -15,7 +15,8 @@ Phases, each fatal on failure:
    can go wrong; every case launched twice and compared bit for bit; the
    int4 and w8a8 cases with their launch plans; and every kernel at the
    Chatterbox shapes (head_dim 64, group 1, K = 1024 / 4096, CFG rows;
-   ``chatterbox_cases`` in each kernel's entry);
+   ``chatterbox_cases`` in each kernel's entry); the routed-experts kernel
+   at LFM2-8B-A1B's expert layer (see :func:`check_moe_experts`);
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -100,7 +101,13 @@ Phases, each fatal on failure:
     gradio): ``generate_audio`` bit-equal to an in-process ``generate``, a
     switch to int4 that frees the int8 engine's memory; each part logged as
     ``phase 14 <part> (<card>): {...}``. Each kernel's entry gains
-    ``launches_host_layers``.
+    ``launches_host_layers``;
+15. hybrid talker (see :func:`run_hybrid_path`): ``lfm2-8b-a1b`` in bf16
+    (short convolutions, attention, routed experts) through ``synthesize``
+    (the benchmark cell's 8 rows) and ``stream_chunks``, each once to warm
+    up and once with exact launch counts, every chunk replayed. Its kernels
+    are the two attention kernels and ``moe_experts``, whose entry takes its
+    ``launches`` from here.
 
 From phase 4 on, a kernel's launch count includes the launches that the
 replays of a CUDA graph (the Qwen decode step) run, read from traces of
@@ -139,6 +146,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12  # FP32 on the CUDA cores (no tensor cores)
 INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed launch starts cold
 SPIN_CYCLES = 1_000_000  # ~0.5 ms of device spin before each timed launch
@@ -622,6 +630,89 @@ def _cfg_decode_mask(rows: int, s: int, p: int, slot: int, cond_lens, uncond_len
     return (key_pos >= pads) & (key_pos <= slot)
 
 
+def check_moe_experts(moe, gen) -> dict:
+    """The routed experts of one decode step at LFM2-8B-A1B's expert layer
+    (H 2048, 32 experts of F 1792, top 4), bf16, against the plain version
+    (``grouped_experts``) on the same card tensors: 8 rows (the benchmark
+    cell's; the main case), 1, 64, and 200 rows (two windows of the
+    kernel's scan; the rows choose among 14 experts). Every expert no row
+    chose holds NaN, so a read of one shows; the chosen-expert flags must
+    be exact. The tolerance (2% of the largest output; the plain version
+    rounds gate and up to bf16 before the SiLU, the kernel does not) must
+    refuse the plain version with one slot dropped and with one slot's
+    weight doubled. Each case launched twice: the same bits. Timed against
+    the bound of the touched experts' bytes (the kernel's FMAs run on the
+    CUDA cores) and a ``torch.bmm`` yardstick over the same experts."""
+    import torch.nn.functional as F
+
+    e, h, f, k = 32, 2048, 1792, 4
+
+    def w(*shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    cases = []
+    for rows, pool in ((8, 32), (1, 32), (64, 32), (200, 14)):
+        w_gate, w_up = w(e, h, f, scale=h ** -0.5), w(e, h, f, scale=h ** -0.5)
+        w_down = w(e, f, h, scale=f ** -0.5)
+        x = w(rows, h, scale=1.0)
+        scores = torch.rand((rows, pool), generator=gen, device="cuda")
+        weight, idx = torch.topk(scores, k, dim=-1)
+        weight = (weight / weight.sum(-1, keepdim=True)).float().contiguous()
+        chosen = torch.zeros(e, dtype=torch.bool, device="cuda")
+        chosen[idx.reshape(-1)] = True
+        for t in (w_gate, w_up, w_down):
+            t[~chosen] = float("nan")
+        args = (x, idx, weight, w_gate, w_up, w_down)
+        touched = torch.full((e,), -1, dtype=torch.int32, device="cuda")
+        out = moe.moe_experts(*args, touched)
+        out2 = moe.moe_experts(*args)
+        ref = moe.grouped_experts(*args)
+        tol = 2e-2 * ref.abs().max().item()
+        dropped, doubled = weight.clone(), weight.clone()
+        dropped[0, -1] = 0.0
+        doubled[0, 0] *= 2.0
+        faults = {name: (moe.grouped_experts(x, idx, wt, w_gate, w_up, w_down) - ref)
+                  .abs().max().item() for name, wt in (("dropped", dropped), ("doubled", doubled))}
+        n_touched = int(chosen.sum())
+        case = {"rows": rows, "topk": k, "experts_chosen": n_touched,
+                "flags_exact": bool(torch.equal(touched, chosen.int())),
+                "fault_errs": faults}
+        _held(cases, "moe_experts", case, out, out2, ref, tol)
+        if not case["flags_exact"] or not min(faults.values()) > tol:
+            raise AssertionError(f"moe_experts {case}")
+        for t in (w_gate, w_up, w_down):
+            t[~chosen] = 0.0  # the yardstick multiplies every row by every chosen expert
+        tl = torch.nonzero(chosen)[:, 0]
+        wg, wu, wd = w_gate[tl], w_up[tl], w_down[tl]
+        xs = x.expand(n_touched, rows, h)
+
+        def library():
+            torch.bmm(F.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu), wd)
+
+        weight_bytes = n_touched * 3 * h * f * 2
+        io_bytes = nbytes(x, idx, weight) + rows * k * (f * 2 * 2 + h * 4 * 2)
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            weight_bytes + io_bytes, 2 * rows * k * 3 * h * f, FP32_FLOP_PER_S)
+        case.update(ms=time_ms(lambda: moe.moe_experts(*args)),
+                    plain_ms=time_ms(lambda: moe.grouped_experts(*args), iters=10),
+                    library_ms=time_ms(library), host_us=host_us(lambda: moe.moe_experts(*args)))
+        case["roofline_pct"] = 100.0 * case["bound_ms"] / case["ms"]
+        del w_gate, w_up, w_down, wg, wu, wd
+    main = cases[0]
+    return {
+        "name": "moe_experts", "route": "cuda",
+        "source": "src/rho_tts_tpu_torch/csrc/moe_experts.cu",
+        "replaces": None,  # the JAX package has no expert layer
+        "shape": f"x({main['rows']},{h}) bf16, top-{k} of {e} experts (H {h}, F {f}) -> f32",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tol": "2e-2 x the largest output", "cases": cases,
+        "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "host_us": main["host_us"],
+        "library": "torch.bmm over the chosen experts (gate, up, down), every row through each",
+    }
+
+
 def check_chatterbox_shapes(attn, dec, qz, w8, i4, gen) -> dict:
     """Phase 2 at the Chatterbox shapes: every kernel of its path (D = 64,
     group 1, K = 1024 / 4096), against its plain version, twice for the same
@@ -831,6 +922,7 @@ KERNEL_NAMES = {
     "decode_gqa_attention": re.compile(r"\bsplit_decode_kernel\b"),
     "int4_matmul": re.compile(r"\bgemv_mma_kernel\b|\bgemv_f32_kernel\b|\bmma_kernel<\d"),
     "w8a8_matmul": re.compile(r"\bwgmma_kernel<|\bmma_kernel<\D"),
+    "moe_experts": re.compile(r"\bmoe_kernel<"),
 }
 
 
@@ -847,7 +939,7 @@ class GraphReplays:
     launches the same kernels every time). So the counts of a replayed
     decode come from the device's trace, not from the model's code.
     ``traces`` keeps each graph's agreed counts and its number of device
-    operations."""
+    operations. Only the kernels of ``kmods`` are counted."""
 
     TRIES = 4  # traced replays of a graph before its traces count as disagreeing
 
@@ -894,7 +986,8 @@ class GraphReplays:
         cuda = torch.autograd.DeviceType.CUDA
         names = [e.name() for e in prof.profiler.kineto_results.events()
                  if e.device_type() == cuda]
-        counts = {k: sum(1 for n in names if pat.search(n)) for k, pat in KERNEL_NAMES.items()}
+        counts = {k: sum(1 for n in names if pat.search(n)) for k, pat in KERNEL_NAMES.items()
+                  if k in self.kmods}
         if not counts["decode_gqa_attention"]:
             raise AssertionError(f"a graph's replay traced {len(names)} device operations, "
                                  f"{counts} of the port's kernels")
@@ -946,17 +1039,17 @@ class StageClock:
         return sum(s.elapsed_time(e) for s, e in self.events[name])
 
 
-def timed_synthesize(qmodel, model, kmods, frames: int, expected) -> dict:
-    """One warm-up ``synthesize()``, then one timed with every kernel's launch
-    count set to 0 just before it; ``expected(layers, steps)`` gives the
-    launch counts the run must show. Returns the metrics and the timed
-    run's codes and waveforms."""
+def timed_synthesize(qmodel, model, kmods, frames: int, expected, texts=TEXTS) -> dict:
+    """One warm-up ``synthesize()`` of ``texts``, then one timed with every
+    kernel's launch count set to 0 just before it; ``expected(layers,
+    steps)`` gives the launch counts the run must show. Returns the metrics
+    and the timed run's codes and waveforms."""
     cfg = model.config
     chunk = qmodel._chunk()
-    kw = dict(min_frames=frames, max_frames=frames, top_k=50, seeds=list(range(len(TEXTS))))
+    kw = dict(min_frames=frames, max_frames=frames, top_k=50, seeds=list(range(len(texts))))
 
     t0 = time.perf_counter()
-    model.synthesize(TEXTS, **kw)  # warm-up: cuBLAS/cuDNN plans, allocator
+    model.synthesize(texts, **kw)  # warm-up: cuBLAS/cuDNN plans, allocator
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
@@ -964,7 +1057,7 @@ def timed_synthesize(qmodel, model, kmods, frames: int, expected) -> dict:
         mod.launches = 0
     with StageClock(qmodel) as clock:
         t0 = time.perf_counter()
-        codes, waves, sr = synthesize_codes(model, kw)
+        codes, waves, sr = synthesize_codes(model, kw, texts)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in kmods.items()}
@@ -980,19 +1073,19 @@ def timed_synthesize(qmodel, model, kmods, frames: int, expected) -> dict:
     audio_s = sum(w.shape[0] for w in waves) / sr
     decode_ms = clock.ms("decode_chunk")
     return {
-        "preset": cfg.name, "quantization": model.quantization, "batch": len(TEXTS),
+        "preset": cfg.name, "quantization": model.quantization, "batch": len(texts),
         "decode_steps": steps, "warmup_s": warm_s, "wall_s": wall_s,
         "prefill_ms": clock.ms("prefill"), "decode_ms": decode_ms,
         "decode_ms_per_step": decode_ms / steps,
-        "tokens_per_s": len(TEXTS) * steps / (decode_ms / 1e3),
+        "tokens_per_s": len(texts) * steps / (decode_ms / 1e3),
         "vocode_ms": clock.ms("vocode"),
         "audio_s": audio_s, "rtf": audio_s / wall_s,
         "launches": launches,
     }, codes, waves
 
 
-def synthesize_codes(model, kw):
-    """``model.synthesize(TEXTS, **kw)``, also returning the codes it vocoded."""
+def synthesize_codes(model, kw, texts=TEXTS):
+    """``model.synthesize(texts, **kw)``, also returning the codes it vocoded."""
     captured = {}
     generate = model._generate_codes_arrays
 
@@ -1003,7 +1096,7 @@ def synthesize_codes(model, kw):
 
     model._generate_codes_arrays = capture
     try:
-        waves, sr = model.synthesize(TEXTS, **kw)
+        waves, sr = model.synthesize(texts, **kw)
     finally:
         del model._generate_codes_arrays
     return captured["codes"], waves, sr
@@ -4038,6 +4131,107 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
     return out
 
 
+def _cell_texts(n: int = 8):
+    """``n`` texts of 120-220 characters, as the hybrid benchmark cell draws."""
+    words = "a quiet river carries the morning light past the old stone mill and on".split()
+    lengths = [120 + (100 * i) // max(n - 1, 1) for i in range(n)]
+    return [" ".join(words[(i + j) % len(words)] for j in range(60))[:m]
+            for i, m in enumerate(lengths)]
+
+
+def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
+    """Phase 15: the hybrid talker ``lfm2-8b-a1b`` (random weights, bf16).
+
+    a. ``synthesize`` of the benchmark cell's 8 rows of 120-220 characters,
+       3 chunks (192 frames): a warm-up (it captures the step) and a timed
+       run with every kernel's launch count zeroed just before it: 6
+       prefill attentions (the attention layers), 6 decode attentions and
+       2 x 22 expert launches a step, every chunk replayed and each step's
+       distinct experts between 4 and 32 in each of the 22 expert layers;
+    b. ``stream_chunks`` of one of them, 2 chunks, the same way: one row
+       touches exactly 4 experts a layer.
+    ``hkmods`` are the wrappers whose kernels the path runs; the replays'
+    launches are counted by :class:`GraphReplays`.
+    """
+    from rho_tts_tpu_torch.utils import profiling
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = qmodel.PRESETS["lfm2-8b-a1b"]
+    talker = cfg.talker
+    t0 = time.perf_counter()
+    model = qmodel.QwenTTSModel(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    chunk = qmodel._chunk()
+
+    def expected(_layers, steps):
+        return {"prefill_gqa_attention": talker.attn_layers,
+                "decode_gqa_attention": talker.attn_layers * steps,
+                "moe_experts": 2 * talker.moe_layers * steps}
+
+    def chunk_spans(rows, steps):
+        """The last ``steps // chunk`` decode chunks' span attributes (the
+        timed run's) and their mean distinct experts a layer and step."""
+        spans = [s["attrs"] for s in profiling.spans()
+                 if s["name"] == "qwen/decode_chunk"][-(steps // chunk):]
+        if len(spans) != steps // chunk or any(s["graph"] != "replay" for s in spans):
+            raise AssertionError(f"hybrid path: chunks ran {[s['graph'] for s in spans]}, "
+                                 f"not all replayed")
+        touched = [n for s in spans for step in s["experts_touched"] for n in step]
+        low, high = talker.experts_per_token, min(talker.n_experts,
+                                                  rows * talker.experts_per_token)
+        if len(touched) != len(spans) * chunk * talker.moe_layers or \
+                not low <= min(touched) <= max(touched) <= high:
+            raise AssertionError(f"hybrid path: experts_touched outside {low}-{high}")
+        return spans, sum(touched) / len(touched)
+
+    texts = _cell_texts()
+    profiling.reset()
+    a, _codes, _waves = timed_synthesize(qmodel, model, hkmods, 3 * chunk, expected, texts)
+    spans, a["experts_touched_mean"] = chunk_spans(len(texts), a["decode_steps"])
+    a["chunks_replayed"] = len(spans)
+    log(f"phase 15 a_synthesize ({smi}): {json.dumps(a)}")
+
+    def stream():
+        return [p for p, _ in model.stream_chunks(texts[0], min_frames=2 * chunk,
+                                                  max_frames=2 * chunk, top_k=50, seed=1)]
+
+    stream()  # warm-up: captures the one-row step
+    torch.cuda.synchronize()
+    for mod in hkmods.values():
+        mod.launches = 0
+    profiling.reset()
+    with StageClock(qmodel) as clock:
+        t0 = time.perf_counter()
+        pieces = stream()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in hkmods.items()}
+    steps = len(clock.events["decode_chunk"]) * chunk
+    if launches != expected(talker.layers, steps):
+        raise AssertionError(f"hybrid stream: launch counts {launches}, expected "
+                             f"{expected(talker.layers, steps)} ({steps} decode steps)")
+    spans, touched_mean = chunk_spans(1, steps)
+    if touched_mean != talker.experts_per_token:
+        raise AssertionError(f"hybrid stream: one row touched {touched_mean} experts a layer")
+    if not all(bool(torch.isfinite(p).all()) for p in pieces):
+        raise AssertionError("hybrid stream: a piece is not finite")
+    b = {"decode_steps": steps, "wall_s": wall_s, "decode_ms": clock.ms("decode_chunk"),
+         "decode_ms_per_step": clock.ms("decode_chunk") / steps, "pieces": len(pieces),
+         "chunks_replayed": len(spans), "launches": launches}
+    log(f"phase 15 b_stream_chunks ({smi}): {json.dumps(b)}")
+    out = {"a_synthesize": a, "b_stream_chunks": b, "init_s": init_s,
+           "launches": {name: a["launches"][name] + b["launches"][name] for name in hkmods},
+           "decode_steps": a["decode_steps"] + b["decode_steps"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _free(device):
     gc.collect()
     if device == "cuda":
@@ -4069,6 +4263,7 @@ def main(argv=None) -> int:
     from rho_tts_tpu_torch.ops.cuda import attention as attn
     from rho_tts_tpu_torch.ops.cuda import decode_attention as dec
     from rho_tts_tpu_torch.ops.cuda import int4_matmul as i4
+    from rho_tts_tpu_torch.ops.cuda import moe_experts as moe
     from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as w8
 
     kmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec,
@@ -4116,6 +4311,14 @@ def main(argv=None) -> int:
                 f"{json.dumps(k['at_main_path_slots'])}")
         for case in k["chatterbox_cases"]:
             log(f"  chatterbox case {json.dumps(case)}")
+    moe_kernel = check_moe_experts(moe, gen)
+    log(f"phase 2 moe_experts: max_abs_err {moe_kernel['max_abs_err']:.3g} "
+        f"(tol {moe_kernel['tol']}), kernel {moe_kernel['ms']:.4f} ms, "
+        f"plain {moe_kernel['plain_ms']:.4f} ms, library {moe_kernel['library_ms']:.4f} ms, "
+        f"bound {moe_kernel['bound_ms']:.5f} ms ({moe_kernel['bound_by']}), "
+        f"host {moe_kernel['host_us']:.1f} us a call")
+    for case in moe_kernel["cases"]:
+        log(f"  case {json.dumps(case)}")
 
     for quantization, w8a8 in ((None, False), ("int4", False), ("int8", True)):
         ref = check_against_cpu(qmodel, quantization, w8a8)
@@ -4156,6 +4359,11 @@ def main(argv=None) -> int:
         log(f"phase 14 host layers: every part passed in {host_path['wall_s']:.1f} s")
     log(f"graph replays: {replays.replays}; the port's kernels in each graph's first, "
         f"traced replays: {json.dumps(replays.traces)}")
+    hkmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec, "moe_experts": moe}
+    with GraphReplays(hkmods) as hybrid_replays:
+        hybrid_path = run_hybrid_path(qmodel, hkmods, smi)
+    log(f"phase 15 hybrid talker: every part passed, peak {hybrid_path['peak_mem_gb']:.2f} GB; "
+        f"graph replays {hybrid_replays.replays}, traced: {json.dumps(hybrid_replays.traces)}")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -4195,9 +4403,14 @@ def main(argv=None) -> int:
         k["per_rank_cases"] = mesh_path["e_per_rank"][k["name"]]
         k["launches_sharded_training"] = sharded_path["launches"][k["name"]]
         k["launches_host_layers"] = host_path["launches"][k["name"]]
+        k["launches_hybrid"] = hybrid_path["launches"].get(k["name"], 0)
         if not any(k["launches_parallel"].values()):
             raise AssertionError(f"phase 12: {k['name']} was launched no time on the mesh path")
 
+    moe_kernel["launches"] = hybrid_path["launches"]["moe_experts"]
+    moe_kernel["launches_path"] = (f"lfm2-8b-a1b bf16, {hybrid_path['decode_steps']} decode "
+                                   f"steps")
+    kernels.append(moe_kernel)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

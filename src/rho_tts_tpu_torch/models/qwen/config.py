@@ -163,6 +163,41 @@ PRESETS = {
 }
 
 
+#: LFM2-8B-A1B's decoder (huggingface.co/LiquidAI/LFM2-8B-A1B, config.json,
+#: model_type lfm2_moe): 18 gated short-convolution and 6 attention layers
+LFM2_LAYER_TYPES = tuple(
+    "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv" for i in range(24))
+
+
+def _lfm2_talker(hidden, q_heads, kv_heads, ffn, layer_types, n_experts, experts_per_token,
+                 expert_ffn, dense_layers):
+    return TransformerConfig(
+        hidden=hidden, layers=len(layer_types), q_heads=q_heads, kv_heads=kv_heads,
+        head_dim=hidden // q_heads, ffn=ffn, rope_theta=1_000_000.0, rms_eps=1e-5,
+        dtype=torch.bfloat16, layer_types=layer_types, n_experts=n_experts,
+        experts_per_token=experts_per_token, expert_ffn=expert_ffn, dense_layers=dense_layers)
+
+
+# The hybrid talker: LFM2-8B-A1B's decoder at its published sizes as the
+# codec-LM's talker, in bf16 (the release's precision), with the 1.7B's
+# codec and heads. Exact-name match only.
+PRESETS["lfm2-8b-a1b"] = QwenTTSConfig(
+    name="lfm2-8b-a1b",
+    talker=_lfm2_talker(2048, 32, 8, 7168, LFM2_LAYER_TYPES, 32, 4, 1792, 2),
+    text_vocab=65536,
+)
+# Its shape at test size: conv, conv, attention, conv, attention, conv; two
+# dense layers, then 8 experts of 32, top 3. Exact-name match only.
+PRESETS["lfm2-tiny"] = QwenTTSConfig(
+    name="lfm2-tiny",
+    talker=_lfm2_talker(64, 4, 2, 128, ("conv", "conv", "full_attention", "conv",
+                                        "full_attention", "conv"), 8, 3, 32, 2),
+    codec=PRESETS["tiny"].codec,
+    text_vocab=512,
+    max_position_embeddings=512,
+)
+
+
 # Preset keys eligible for substring inference from checkpoint names.
 # "small"/"draft" (the speculative-demo pair) are deliberately excluded:
 # they are common words in real checkpoint paths (".../qwen-0.6b-draft")
@@ -176,7 +211,7 @@ def resolve_config(model_path: str) -> QwenTTSConfig:
 
     A local directory with a ``config.json`` may override the preset size;
     otherwise the preset is inferred from the name ("0.6B", "1.7B", "tiny")
-    or matched exactly ("small", "draft").
+    or matched exactly ("small", "draft", "lfm2-8b-a1b", "lfm2-tiny").
     """
     base = "1.7B"
     # Match against the basename only (a parent directory like

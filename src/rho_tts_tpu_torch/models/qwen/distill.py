@@ -210,6 +210,8 @@ def distill_draft(target, draft, n_texts: int = 64, seq_frames: int = 96, batch_
     ``loss`` and ``overlap``, ``steps``, and every step's ``losses`` and
     ``overlaps`` (fetched once, at the end).
     """
+    tfm.require_dense(target.config.talker, "distillation")
+    tfm.require_dense(draft.config.talker, "distillation")
     cfg_t, cfg_d = target.config, draft.config
     if cfg_t.audio_vocab != cfg_d.audio_vocab:
         raise ValueError("target and draft must share the codec vocabulary")

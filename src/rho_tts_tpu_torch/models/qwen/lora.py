@@ -37,6 +37,7 @@ from ...parallel import collectives as coll
 from ...parallel.mesh import mesh_axis
 from ...parallel.sharding import cut_lora
 from .. import checkpoint as ckpt_lib
+from .. import transformer as tfm
 from .config import QwenTTSConfig
 from .train import AdamW, _apply_updates, _forward_loss, _value_and_grad, leaves, make_optimizer
 
@@ -67,6 +68,7 @@ def init_lora(cfg: QwenTTSConfig, params: Params, rank: int = 8,
     ``B`` is zero: the merged model equals the base bit for bit until the
     first optimizer step.
     """
+    tfm.require_dense(cfg.talker, "LoRA")
     unknown = [t for t in targets if t not in TARGETS]
     if unknown:
         raise ValueError(f"unknown LoRA targets {unknown}; choose from {TARGETS}")

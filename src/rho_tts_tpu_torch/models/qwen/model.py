@@ -17,6 +17,13 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
   On the CPU and under tensor parallelism over several ranks it runs
   eagerly. The host checks cancellation and the lagged all-done flag
   between chunks only.
+* The talker is the dense GQA stack of the Qwen presets, or a hybrid one
+  (``lfm2-8b-a1b``: short convolutions, attention, routed experts), whose
+  short-convolution state lies in the step graph's arena beside the KV
+  caches and whose step counts the distinct experts of each expert layer;
+  each ``qwen/decode_chunk`` span carries them as ``experts_touched``,
+  fetched once a call (with a chunk's codes in ``stream_chunks``). It runs
+  in bf16 on one device, without serving, speculation or meshes.
 * The codec vocoder turns the codes into a 24 kHz waveform per length
   bucket; :meth:`QwenTTSModel.stream_chunks` vocodes a sliding window per
   decode chunk instead, and voice cloning encodes the reference audio with
@@ -158,11 +165,14 @@ def prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
 
 
 def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_ids,
-             spk_mask, rope_pos, attn_mask, cache_k, cache_v, key_valid, tp=None, sp_mesh=None):
+             spk_mask, rope_pos, attn_mask, cache_k, cache_v, key_valid, tp=None, sp_mesh=None,
+             conv_state=None):
     """Prompt-embedding assembly + prefill. Writes the caches in place.
 
     ``tp``: the mesh axis the weights are sharded over; ``sp_mesh``: a
-    sequence-parallel prefill (``transformer.stack_forward``). Returns
+    sequence-parallel prefill (``transformer.stack_forward``);
+    ``conv_state``: a hybrid talker's short-convolution state, zeroed, which
+    the prefill leaves holding the prompt's last positions. Returns
     ``(logits (B, V) f32, cache_k, cache_v, key_valid)``.
     """
     p = ids_slotted.shape[1]
@@ -171,7 +181,7 @@ def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_
     h, (ck, cv) = tfm.stack_forward(
         params["talker"], cfg.talker, embeds, rope_pos,
         kv_caches=(cache_k, cache_v), cache_len=0, attn_mask=attn_mask,
-        key_valid=key_valid, fused_prefill=True, sp_mesh=sp_mesh, tp=tp,
+        key_valid=key_valid, fused_prefill=True, sp_mesh=sp_mesh, tp=tp, conv_state=conv_state,
     )
     key_valid = key_valid.clone()
     key_valid[:, :p] = attn_mask
@@ -244,10 +254,15 @@ class _StepState:
     ``done`` ``(B,)`` the last frame; ``noise`` ``(steps, B, top_k)`` the
     sampler noise and ``gate`` ``(steps,)`` the minimum-duration gate of each
     step; ``temperature`` ``(B,)`` the rows' sampling temperatures; ``codes``
-    ``(B, steps, nq)`` and ``dones`` ``(B, steps)`` what each step emits.
+    ``(B, steps, nq)`` and ``dones`` ``(B, steps)`` what each step emits. A
+    talker with ``moe_layers`` expert layers adds ``touched`` ``(steps,
+    moe_layers)`` int32, the distinct experts each expert layer ran at each
+    step, summed from ``hits`` ``(moe_layers, experts)``, which the experts
+    kernel writes at each step (1 for each expert chosen).
     """
 
-    def __init__(self, b: int, nq: int, steps: int, top_k: int, device):
+    def __init__(self, b: int, nq: int, steps: int, top_k: int, device, moe_layers: int = 0,
+                 experts: int = 0):
         def empty(shape, dtype):
             return torch.empty(shape, dtype=dtype, device=device)
 
@@ -261,6 +276,8 @@ class _StepState:
         self.temperature = empty((b,), torch.float32)
         self.codes = empty((b, steps, nq), torch.int64)
         self.dones = empty((b, steps), torch.bool)
+        self.touched = empty((steps, moe_layers), torch.int32) if moe_layers else None
+        self.hits = empty((moe_layers, experts), torch.int32) if moe_layers else None
 
     def load(self, slot0: int, rope_base, last_codes, done, noise, gate, temperature) -> None:
         """Write a chunk's inputs in place (fills and copies: no host wait)."""
@@ -278,14 +295,17 @@ class _StepState:
 
 
 def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepState,
-                 top_k: int, tp=None) -> None:
+                 top_k: int, tp=None, conv_state=None) -> None:
     """One AR decode step on the chunk's device state ``st``: embed the last
     frame, run the talker with its K/V written at slot ``slot0 + t``, sample
     the primary code (EOS floored while the step's gate is set), predict the
     residual codes, write the frame at step ``t`` of ``st.codes`` / ``st.dones``
     and advance ``t``. Caches and ``key_valid`` are updated in place; ``tp``
-    as :func:`_prefill`. Capturable: it reads and writes only ``st``, the
-    caches, ``key_valid``, ``lm_head`` and the weights."""
+    as :func:`_prefill`; ``conv_state`` (a hybrid talker's) is rolled in
+    place, and the distinct experts of each expert layer go to
+    ``st.touched`` at step ``t``. Capturable: it reads and writes only
+    ``st``, the caches, ``key_valid``, ``conv_state``, ``lm_head`` and the
+    weights."""
     nq = cfg.codec.n_codebooks
     embs = params["audio_embed"]
     t = st.t.view(1)
@@ -297,8 +317,11 @@ def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepSta
     h, _ = tfm.stack_forward(
         params["talker"], cfg.talker, emb[:, None, :], (st.rope_base + st.t)[:, None],
         kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
-        key_valid=key_valid, tp=tp, uniform_slot=True,
+        key_valid=key_valid, tp=tp, uniform_slot=True, conv_state=conv_state,
+        expert_hits=st.hits,
     )
+    if st.touched is not None:
+        st.touched.index_copy_(0, t, st.hits.sum(dim=1, dtype=torch.int32)[None])
     with profiling.region("qwen/sample"):
         key_valid.index_fill_(1, slot.view(1), True)
         h_last = h[:, -1]
@@ -323,7 +346,7 @@ def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepSta
 
 def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_base,
                   last_codes, done, seeds, temperature, step_base: int, min_frames: int,
-                  steps: int, top_k: int, tp=None, graph=None):
+                  steps: int, top_k: int, tp=None, graph=None, conv_state=None):
     """``steps`` AR decode steps from cache slot ``slot0``.
 
     The JAX scan as a loop of :func:`_decode_step`: caches and ``key_valid``
@@ -331,10 +354,13 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
     model's :class:`_StepGraph` for this key, replays the step as a CUDA
     graph (captured by its first chunk, :meth:`_StepGraph.run`) over its own
     buffers, the inputs copied in first; without it the step runs eagerly.
-    Returns ``(codes (B, steps, nq), done (B, steps), cache_k, cache_v,
-    key_valid, last_codes, done, mode)``, none of the tensors the graph's
-    state, which the next chunk overwrites; ``mode`` is how the steps ran:
-    ``"capture"``, ``"replay"`` or ``"eager"``.
+    ``conv_state``: a hybrid talker's short-convolution state, rolled in
+    place (the graph's own, or copied into it). Returns ``(codes (B, steps,
+    nq), done (B, steps), cache_k, cache_v, key_valid, last_codes, done,
+    touched, mode)``, none of the tensors the graph's state, which the next
+    chunk overwrites; ``touched`` ``(steps, expert layers)`` int32 counts the
+    distinct experts of each step's expert layers (None without experts);
+    ``mode`` is how the steps ran: ``"capture"``, ``"replay"`` or ``"eager"``.
     """
     with profiling.region("qwen/chunk_prologue"):
         b, nq = last_codes.shape
@@ -343,16 +369,19 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
         frames = step_base + torch.arange(steps, dtype=torch.int64, device=seeds.device)
         noise = _gumbel_noise(seeds, frames[:, None], top_k)  # (steps, B, top_k)
         if graph is None:
-            st = _StepState(b, nq, steps, top_k, seeds.device)
+            st = _StepState(b, nq, steps, top_k, seeds.device, cfg.talker.moe_layers,
+                            cfg.talker.n_experts)
             lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
         else:
             st, lm_head = graph.state, graph.lm_head
             lm_head.copy_(params["lm_head"])
-            cache_k, cache_v, key_valid = graph.adopt(cache_k, cache_v, key_valid)
+            cache_k, cache_v, key_valid, conv_state = graph.adopt(cache_k, cache_v, key_valid,
+                                                                  conv_state)
         st.load(slot0, rope_base, last_codes, done, noise, frames < min_frames, temperature)
 
     def step():
-        _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st, top_k, tp)
+        _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st, top_k, tp,
+                     conv_state)
 
     mode = None if graph is None else graph.run(step, steps, params)
     if mode is None:
@@ -360,11 +389,21 @@ def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_bas
         for _ in range(steps):
             with profiling.region("qwen/step"):
                 step()
-    out = (st.codes, st.dones, st.last_codes, st.done)
+    out = (st.codes, st.dones, st.last_codes, st.done, st.touched)
     if graph is not None:  # the graph's state, which the next chunk overwrites
-        out = tuple(x.clone() for x in out)
-    codes, dones, last_codes, done = out
-    return codes, dones, cache_k, cache_v, key_valid, last_codes, done, mode
+        out = tuple(None if x is None else x.clone() for x in out)
+    codes, dones, last_codes, done, touched = out
+    return codes, dones, cache_k, cache_v, key_valid, last_codes, done, touched, mode
+
+
+def _attach_touched(chunks) -> None:
+    """Fetch the distinct-expert counters of ``chunks`` (``(span attrs,
+    (steps, expert layers) tensor)``) in one copy and put each chunk's, a
+    list a step of one count an expert layer, on its ``qwen/decode_chunk``
+    span as ``experts_touched``."""
+    values = torch.stack([t for _, t in chunks]).cpu().tolist()
+    for (attrs, _), v in zip(chunks, values):
+        attrs["experts_touched"] = v
 
 
 #: decode steps captured as CUDA graphs, and graph replays, in this process
@@ -393,13 +432,20 @@ def _step_leaves(params) -> List[torch.Tensor]:
 
 def _arena_layout(cfg_local, b: int, s: int, kv_dtype) -> Tuple[Tuple[int, ...], List[int]]:
     """The shape of one KV cache of a key and the byte offsets of its two
-    caches, its ``key_valid`` and the end in an arena (each 256-aligned)."""
-    shape = (cfg_local.layers, b, s, cfg_local.kv_heads, cfg_local.head_dim)
+    caches, its ``key_valid``, a hybrid talker's f32 short-convolution state
+    and the end in an arena (each 256-aligned)."""
+    shape = (cfg_local.attn_layers, b, s, cfg_local.kv_heads, cfg_local.head_dim)
     sizes = [math.prod(shape) * torch.empty((), dtype=kv_dtype).element_size()] * 2 + [b * s]
+    if cfg_local.conv_layers:
+        sizes.append(math.prod(_conv_shape(cfg_local, b)) * 4)
     offsets = [0]
     for n in sizes:
         offsets.append(offsets[-1] + _round_up(n, 256))
     return shape, offsets
+
+
+def _conv_shape(cfg_local, b: int) -> Tuple[int, ...]:
+    return (cfg_local.conv_layers, b, tfm.CONV_TAPS - 1, cfg_local.hidden)
 
 
 class _StepGraph:
@@ -425,7 +471,13 @@ class _StepGraph:
             self.cache_k, self.cache_v = (arena[at[i]:at[i + 1]].view(kv_dtype)
                                           [:math.prod(shape)].view(shape) for i in (0, 1))
             self.key_valid = arena[at[2]:at[2] + b * s].view(torch.bool).view(b, s)
-            self.state = _StepState(b, nq, steps, top_k, arena.device)
+            self.conv_state = None
+            if cfg_local.conv_layers:
+                conv = _conv_shape(cfg_local, b)
+                self.conv_state = (arena[at[3]:at[4]].view(torch.float32)[:math.prod(conv)]
+                                   .view(conv))
+            self.state = _StepState(b, nq, steps, top_k, arena.device, cfg_local.moe_layers,
+                                    cfg_local.n_experts)
         self.lm_head = lm_head
         self.graph = None
         self.leaves: List[torch.Tensor] = []  # the weights the graph was captured on
@@ -436,16 +488,18 @@ class _StepGraph:
         self.cache_k.zero_()
         self.cache_v.zero_()
         self.key_valid.zero_()
+        if self.conv_state is not None:
+            self.conv_state.zero_()
         return self.cache_k, self.cache_v, self.key_valid
 
-    def adopt(self, cache_k, cache_v, key_valid):
+    def adopt(self, cache_k, cache_v, key_valid, conv_state=None):
         """Copy caches other than the key's own into them (the prefill's
         ``key_valid`` is a new tensor); returns the key's own."""
         for own, given in ((self.cache_k, cache_k), (self.cache_v, cache_v),
-                           (self.key_valid, key_valid)):
+                           (self.key_valid, key_valid), (self.conv_state, conv_state)):
             if given is not own:
                 own.copy_(given)
-        return self.cache_k, self.cache_v, self.key_valid
+        return self.cache_k, self.cache_v, self.key_valid, self.conv_state
 
     def run(self, step, steps: int, params) -> Optional[str]:
         """Run ``step`` ``steps`` times as the graph: replay it (``"replay"``),
@@ -650,6 +704,7 @@ class QwenTTSModel(nn.Module):
             if params is None:
                 params = init_params(config, seed, self.device)
             if lora_path is not None:
+                tfm.require_dense(config.talker, "lora_path")
                 # Merge BEFORE quantization: adapters train in f32 against the
                 # dense base; a quantized export cannot be merged into.
                 from .lora import apply_lora, load_lora
@@ -664,6 +719,7 @@ class QwenTTSModel(nn.Module):
                 with torch.inference_mode(False), torch.no_grad():
                     params = apply_lora(params, lora, scale=float(meta.get("scale", 1.0)))
             if quantization in ("int8", "int4"):
+                tfm.require_dense(config.talker, f"quantization={quantization!r}")
                 params = {**params, "talker": quantize_stack(params["talker"], quantization)}
             elif quantization not in (None, "none"):
                 raise ValueError(f"Unsupported quantization: {quantization}")
@@ -811,6 +867,14 @@ class QwenTTSModel(nn.Module):
                 return (*graph.fresh(), graph)
         cache_k, cache_v = self._shard_kv(b, s)
         return cache_k, cache_v, torch.zeros((b, s), dtype=torch.bool, device=self.device), None
+
+    def _conv_buffer(self, b: int, graph: Optional[_StepGraph]) -> Optional[torch.Tensor]:
+        """A hybrid talker's short-convolution state for ``b`` rows, zeroed:
+        the graph's own (:meth:`_decode_buffers` zeroed it), or new; None for
+        a talker without short convolutions."""
+        if graph is not None:
+            return graph.conv_state
+        return tfm.make_conv_state(self.config.talker, b, self.device)
 
     def _all_done(self, done: torch.Tensor) -> torch.Tensor:
         """The batch's all-done flag, over every data rank's rows."""
@@ -994,13 +1058,14 @@ class QwenTTSModel(nn.Module):
         s = p + n_chunks * _chunk()
 
         cache_k, cache_v, key_valid, graph = self._decode_buffers(b, s, top_k)
+        conv_state = self._conv_buffer(b, graph)
         try:
             with profiling.stage("qwen/prefill"):
                 logits, cache_k, cache_v, key_valid = _prefill(
                     self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
                     a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
                     cache_k, cache_v, key_valid, tp=self.tp_axis,
-                    sp_mesh=self.mesh if self.seq_parallel else None,
+                    sp_mesh=self.mesh if self.seq_parallel else None, conv_state=conv_state,
                 )
 
             if seeds is None:
@@ -1036,16 +1101,20 @@ class QwenTTSModel(nn.Module):
             last_codes = first_codes
             slot0 = p
             prev_flag = None
+            touched = []  # (span attrs, the chunk's distinct experts) of an expert talker
             for _ in range(n_chunks):
                 if cancel_check is not None:
                     cancel_check()
                 with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
                     (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                     done, attrs["graph"]) = _decode_chunk(
+                     done, chunk_touched, attrs["graph"]) = _decode_chunk(
                         self.params, cfg, cache_k, cache_v, key_valid, slot0,
                         rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
                         slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
+                        conv_state=conv_state,
                     )
+                if chunk_touched is not None:
+                    touched.append((attrs, chunk_touched))
                 all_codes.append(codes_chunk)
                 all_done.append(done_chunk)
                 slot0 += _chunk()
@@ -1056,6 +1125,8 @@ class QwenTTSModel(nn.Module):
                         break
                 prev_flag = self._all_done(done)
 
+            if touched:  # fetched once, where the caller is about to wait for the codes
+                _attach_touched(touched)
             data = self._data_axis()
             return (all_gather(torch.cat(all_codes, dim=1), 0, data),
                     all_gather(torch.cat(all_done, dim=1), 0, data), n_real)
@@ -1147,7 +1218,7 @@ class QwenTTSModel(nn.Module):
         """B=1 prompt build + prefill with ``decode_slots`` free cache slots.
 
         Shared by the streaming and speculative single-stream paths. Returns
-        dict(logits (1, V), ck, cv, kv, p, len0, graph): with ``top_k`` the
+        dict(logits (1, V), ck, cv, kv, p, len0, graph, conv): with ``top_k`` the
         caches may be a decode-step graph's (:meth:`_decode_buffers`), which
         the caller releases.
         """
@@ -1156,19 +1227,20 @@ class QwenTTSModel(nn.Module):
         s = p + int(decode_slots)
         # one stream: the row stays on every rank
         cache_k, cache_v, key_valid, graph = self._decode_buffers(1, s, top_k)
+        conv_state = self._conv_buffer(1, graph)
         a = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
         try:
             logits, ck, cv, kv = _prefill(
                 self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
                 a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-                cache_k, cache_v, key_valid, tp=self.tp_axis,
+                cache_k, cache_v, key_valid, tp=self.tp_axis, conv_state=conv_state,
             )
         except BaseException:
             if graph is not None:
                 self._step_graphs.release()
             raise
         return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0]),
-                "graph": graph}
+                "graph": graph, "conv": conv_state}
 
     @torch.inference_mode()
     def stream_chunks(self, text: str, speaker: Optional[str] = None, language: str = "English",
@@ -1246,13 +1318,16 @@ class QwenTTSModel(nn.Module):
                     cancel_check()
                 with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
                     (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                     done, attrs["graph"]) = _decode_chunk(
+                     done, touched, attrs["graph"]) = _decode_chunk(
                         self.params, cfg, cache_k, cache_v, key_valid, slot0,
                         rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
                         slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
+                        conv_state=pre["conv"],
                     )
                 slot0 += _chunk()
                 cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()
+                if touched is not None:  # with the chunk's codes
+                    _attach_touched([(attrs, touched)])
                 hit = np.nonzero(dd)[0]
                 if hit.size:
                     cc = cc[: int(hit[0]) + 1]

@@ -270,6 +270,8 @@ def speculative_generate_codes(target, draft, text: str, speaker: Optional[str] 
     cfg_t, cfg_d = target.config, draft.config
     if cfg_t.audio_vocab != cfg_d.audio_vocab:
         raise ValueError("target and draft must share the codec vocabulary")
+    tfm.require_dense(cfg_t.talker, "speculative decoding")
+    tfm.require_dense(cfg_d.talker, "speculative decoding")
     temperature = cfg_t.temperature if temperature is None else temperature
     top_k = cfg_t.top_k if top_k is None else top_k
     dev = target.device

@@ -168,6 +168,7 @@ def init_train_state(cfg: QwenTTSConfig, seed: int = 0, optimizer: Optional[Adam
     """``(params, opt_state)``: random weights from ``seed`` on ``device``
     (default ``"cuda"``, this rank's card under a mesh) and a fresh
     optimizer state over them; with ``mesh``, over this rank's shards."""
+    tfm.require_dense(cfg.talker, "training")
     params = init_params(cfg, seed, device)
     if mesh is not None:
         params = shard_train_params(mesh, params, cfg)

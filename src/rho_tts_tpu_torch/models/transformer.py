@@ -20,6 +20,15 @@ plain versions. A T > 1 forward over a used cache (speculative verify) is
 plain masked attention, as in the JAX package, whose einsum branch computes
 it outside any Pallas kernel.
 
+A hybrid talker (``TransformerConfig.layer_types`` / ``n_experts``: LFM2-MoE)
+keeps a weight stack per kind of layer and runs them in the schedule's
+order (:func:`_hybrid_forward`): gated short convolutions over an f32 state
+``(Lc, B, K - 1, H)`` rolled in place, GQA attention with QK-norm over a KV
+cache of the attention layers alone, a dense SwiGLU in the first
+``dense_layers`` and routed experts after (an f32 sigmoid router with a bias
+on the choice; a decode step runs ``ops.cuda.moe_experts``, a prefill groups
+its tokens by expert). It has the cached forward only.
+
 The cache-less forward (``kv_caches=None``: training and distillation) is
 plain masked causal attention too, as JAX's is, and differentiable; the
 kernels have no backward and raise when reached under autograd.
@@ -39,6 +48,7 @@ the attention.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import os
@@ -50,6 +60,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
+from ..ops.cuda.moe_experts import grouped_experts, moe_experts
 from ..parallel.collectives import all_gather, copy_to_model, reduce_from_model
 from ..utils import profiling
 from .quantization import matmul as qmm
@@ -68,6 +79,68 @@ class TransformerConfig:
     rope_theta: float = 1_000_000.0
     rms_eps: float = 1e-6
     dtype: Any = torch.bfloat16
+    # The hybrid talker (LFM2-MoE): a schedule of layer kinds, "conv" (gated
+    # short convolution of CONV_TAPS taps) or "full_attention" (with QK-norm);
+    # empty means every layer attends, as in the dense stack.
+    layer_types: Tuple[str, ...] = ()
+    # Routed experts: 0 means a dense SwiGLU of ``ffn`` in every layer. With
+    # them, layers from ``dense_layers`` on hold ``n_experts`` SwiGLU experts
+    # of ``expert_ffn``, ``experts_per_token`` chosen a token by a sigmoid
+    # router with a bias on the choice, their weights normalised to one.
+    n_experts: int = 0
+    experts_per_token: int = 0
+    expert_ffn: int = 0
+    dense_layers: int = 0
+
+    def __post_init__(self):
+        if self.layer_types and (len(self.layer_types) != self.layers or not set(
+                self.layer_types) <= {"conv", "full_attention"}):
+            raise ValueError(f"layer_types must give each of the {self.layers} layers "
+                             f"'conv' or 'full_attention', got {self.layer_types}")
+
+    @property
+    def schedule(self) -> Tuple[str, ...]:
+        """Each layer's kind: ``"conv"`` or ``"full_attention"``."""
+        return tuple(self.layer_types) or ("full_attention",) * self.layers
+
+    @property
+    def attn_layers(self) -> int:
+        """Layers that attend, and so hold a slice of the KV cache."""
+        return self.schedule.count("full_attention")
+
+    @property
+    def conv_layers(self) -> int:
+        return self.schedule.count("conv")
+
+    @property
+    def moe_layers(self) -> int:
+        return self.layers - self.dense_layers if self.n_experts else 0
+
+    @property
+    def hybrid(self) -> bool:
+        """Whether the stack has layers other than the dense GQA block."""
+        return bool(self.layer_types) or self.n_experts > 0
+
+    @property
+    def kind(self) -> str:
+        """The talker's kind, as errors name it."""
+        if not self.hybrid:
+            return "dense GQA"
+        return (f"hybrid ({self.conv_layers} short-convolution + {self.attn_layers} attention "
+                f"layers, {self.n_experts} routed experts in {self.moe_layers})")
+
+
+#: taps of the hybrid talker's causal depthwise convolution (LFM2's ``conv_L_cache``)
+CONV_TAPS = 3
+
+
+def require_dense(cfg: TransformerConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` where ``what`` meets a hybrid talker."""
+    if cfg.hybrid:
+        raise NotImplementedError(
+            f"{what} is not supported for a talker with short-convolution or expert layers: "
+            f"this one is {cfg.kind}. It runs in bf16 through synthesize(), generate_codes() "
+            f"and stream_chunks() on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +156,10 @@ def _dense_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 
 
 def init_stack(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
-    """Random stacked ``(layers, ...)`` block weights, shapes and scales as JAX."""
+    """Random stacked ``(layers, ...)`` block weights, shapes and scales as JAX
+    (a hybrid talker's per-kind stacks: :func:`init_hybrid`)."""
+    if cfg.hybrid:
+        return init_hybrid(gen, cfg, device)
     L = cfg.layers
     qkv_out = (cfg.q_heads + 2 * cfg.kv_heads) * cfg.head_dim
     ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=device)  # noqa: E731
@@ -97,6 +173,51 @@ def init_stack(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
         "w_down": _dense_init(gen, (L, cfg.ffn, cfg.hidden), cfg.dtype, device),
     }
     return {"blocks": blocks, "final_norm": ones(cfg.hidden)}
+
+
+def init_hybrid(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
+    """Random weights of a hybrid talker, one stack per kind of layer.
+
+    ``attn`` ``(La, ...)``: ``attn_norm``, ``wqkv``, ``q_norm`` / ``k_norm``
+    (``(La, head_dim)``), ``wo``. ``conv`` ``(Lc, ...)``:
+    ``conv_norm``, ``in_proj`` ``(H, 3H)`` (the B, C and x~ projections),
+    ``conv_w`` ``(H, CONV_TAPS)`` depthwise taps, ``out_proj``. ``ffn``
+    (the dense layers) ``mlp_norm``, ``w_gate`` / ``w_up`` / ``w_down`` of
+    ``ffn``; ``moe`` (the expert layers) ``mlp_norm``, ``router`` ``(H, E)``,
+    ``expert_bias`` ``(E,)`` f32 (zero, as a release starts it), and
+    ``w_gate`` / ``w_up`` ``(E, H, expert_ffn)``, ``w_down``
+    ``(E, expert_ffn, H)``. Norms at one; the i-th layer of a kind is the
+    i-th of the schedule's layers of that kind.
+    """
+    h, dt = cfg.hidden, cfg.dtype
+    la, lc = cfg.attn_layers, cfg.conv_layers
+    ld = cfg.layers - cfg.moe_layers
+    lm, e, fe = cfg.moe_layers, cfg.n_experts, cfg.expert_ffn
+    ones = lambda *shape: torch.ones(shape, dtype=torch.float32, device=device)  # noqa: E731
+
+    def dense(*shape):
+        return _dense_init(gen, shape, dt, device)
+
+    out: Params = {"final_norm": ones(h)}
+    if la:
+        qkv_out = (cfg.q_heads + 2 * cfg.kv_heads) * cfg.head_dim
+        out["attn"] = {"attn_norm": ones(la, h), "wqkv": dense(la, h, qkv_out),
+                       "q_norm": ones(la, cfg.head_dim), "k_norm": ones(la, cfg.head_dim),
+                       "wo": dense(la, cfg.q_heads * cfg.head_dim, h)}
+    if lc:
+        out["conv"] = {"conv_norm": ones(lc, h), "in_proj": dense(lc, h, 3 * h),
+                       # N(0, 1 / taps): drawn (Lc, K, H), stored (Lc, H, K)
+                       "conv_w": dense(lc, CONV_TAPS, h).transpose(1, 2).contiguous(),
+                       "out_proj": dense(lc, h, h)}
+    if ld:
+        out["ffn"] = {"mlp_norm": ones(ld, h), "w_gate": dense(ld, h, cfg.ffn),
+                      "w_up": dense(ld, h, cfg.ffn), "w_down": dense(ld, cfg.ffn, h)}
+    if lm:
+        out["moe"] = {"mlp_norm": ones(lm, h), "router": dense(lm, h, e),
+                      "expert_bias": torch.zeros((lm, e), dtype=torch.float32, device=device),
+                      "w_gate": dense(lm, e, h, fe), "w_up": dense(lm, e, h, fe),
+                      "w_down": dense(lm, e, fe, h)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +288,9 @@ def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope, tp_grad=
     h = copy_to_model(rms_norm(x, params["attn_norm"], cfg.rms_eps), tp_grad)
     qkv = qmm(h, params["wqkv"])
     q, k, v = _split_qkv(qkv, cfg)
+    if "q_norm" in params:  # QK-norm (the hybrid talker): each head, before RoPE
+        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
     return _rotate(q, *rope), _rotate(k, *rope), v
 
 
@@ -341,42 +465,51 @@ def _block_forward_cached(
     and attended by the local queries at their global offset.
     """
     with profiling.region("talker/attention"):
-        q, k, v = _qkv(params, cfg, x, rope)
-        if sp is not None:
-            k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
-        b, t = k.shape[:2]
-
-        if isinstance(slot, int):
-            ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
-            cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
-        elif slot.dim() == 0:  # one device slot for the batch, inside the cache
-            cols = _slot_columns(slot, t)
-            _write_columns(ck_all[layer], cols, k)
-            _write_columns(cv_all[layer], cols, v)
-        else:  # per-row columns; out-of-range columns drop
-            cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
-            scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
-            scatter_rows(cv_all[layer], cols, v.to(cv_all.dtype))
-
-        if mask is None:
-            # The chunk IS the whole attention context (empty cache): the
-            # prefill kernel runs over the fresh q/k/v directly.
-            pmask = attn_mask if attn_mask is not None else torch.ones(
-                (b, t), dtype=torch.bool, device=x.device
-            )
-            if sp is not None:
-                attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
-            else:
-                attn = fused_gqa_attention(q, k, v, pmask, causal=True)
-        elif t == 1:
-            attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
-        else:
-            # T > 1 over a used cache (speculative verify): JAX computes it as
-            # plain masked attention (its einsum branch), and so does the port.
-            attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
-        x = _attn_out(params, cfg, x, attn, tp)
+        x = _attention_cached(params, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
+                              tp, sp)
     with profiling.region("talker/mlp"):
         return _mlp(params, cfg, x, tp)
+
+
+def _attention_cached(params, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
+                      tp=None, sp=None) -> torch.Tensor:
+    """The attention half of :func:`_block_forward_cached`: K/V written at
+    ``[slot, slot+T)`` of cache layer ``layer``, attention, output projection
+    and residual."""
+    q, k, v = _qkv(params, cfg, x, rope)
+    if sp is not None:
+        k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
+    b, t = k.shape[:2]
+
+    if isinstance(slot, int):
+        ck_all[layer, :, slot : slot + t] = k.to(ck_all.dtype)
+        cv_all[layer, :, slot : slot + t] = v.to(cv_all.dtype)
+    elif slot.dim() == 0:  # one device slot for the batch, inside the cache
+        cols = _slot_columns(slot, t)
+        _write_columns(ck_all[layer], cols, k)
+        _write_columns(cv_all[layer], cols, v)
+    else:  # per-row columns; out-of-range columns drop
+        cols = slot[:, None] + torch.arange(t, device=slot.device)[None, :]
+        scatter_rows(ck_all[layer], cols, k.to(ck_all.dtype))
+        scatter_rows(cv_all[layer], cols, v.to(cv_all.dtype))
+
+    if mask is None:
+        # The chunk IS the whole attention context (empty cache): the
+        # prefill kernel runs over the fresh q/k/v directly.
+        pmask = attn_mask if attn_mask is not None else torch.ones(
+            (b, t), dtype=torch.bool, device=x.device
+        )
+        if sp is not None:
+            attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
+        else:
+            attn = fused_gqa_attention(q, k, v, pmask, causal=True)
+    elif t == 1:
+        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
+    else:
+        # T > 1 over a used cache (speculative verify): JAX computes it as
+        # plain masked attention (its einsum branch), and so does the port.
+        attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
+    return _attn_out(params, cfg, x, attn, tp)
 
 
 def _slot_columns(slot: torch.Tensor, t: int) -> torch.Tensor:
@@ -451,6 +584,8 @@ def stack_forward(
     sp_mesh=None,
     tp=None,
     uniform_slot: bool = False,
+    conv_state: Optional[torch.Tensor] = None,
+    expert_hits: Optional[torch.Tensor] = None,
 ):
     """Run the block stack, over the stacked caches or without them.
 
@@ -490,11 +625,25 @@ def stack_forward(
 
     ``kv_window`` (not ported: the decode kernel skips masked slots) raises
     ``NotImplementedError``.
+
+    A hybrid talker (``cfg.hybrid``) runs :func:`_hybrid_forward`: its KV
+    caches hold the attention layers only, ``conv_state`` ``(Lc, B,
+    CONV_TAPS - 1, H)`` f32 is the short convolutions' state (updated in
+    place), and ``expert_hits`` ``(Lm, E)`` int32, if given, receives 1 for
+    each expert that some token chose in each expert layer, else 0. It has no cache-less, TP or SP
+    forward (``NotImplementedError``).
     """
     if kv_window is not None:
         raise NotImplementedError(
             "kv_window is not ported: the port decodes over the whole cache, whose masked "
             "slots the decode kernel skips")
+    if cfg.hybrid:
+        if kv_caches is None or sp_mesh is not None or tp is not None:
+            require_dense(cfg, "the cache-less forward (training)" if kv_caches is None
+                          else "a tensor- or sequence-parallel forward")
+        return _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask,
+                               key_valid, fused_prefill, slot_causal, block_causal, uniform_slot,
+                               conv_state, expert_hits)
     blocks = params["blocks"]
     cfg = local_config(cfg, tp)
     sp = None
@@ -527,8 +676,24 @@ def stack_forward(
         return x, (torch.stack(ks), torch.stack(vs))
 
     ck_all, cv_all = kv_caches
+    slot, mask = _slot_and_mask(x, ck_all.shape[2], cache_len, attn_mask, key_valid,
+                                fused_prefill, slot_causal, block_causal, uniform_slot)
+    for layer in range(int(ck_all.shape[0])):
+        lp = {name: w[layer] for name, w in per_layer.items()}
+        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
+                                  tp, sp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    if sp is not None:
+        x = all_gather(x, 1, sp)
+    return x, (ck_all, cv_all)
+
+
+def _slot_and_mask(x, s, cache_len, attn_mask, key_valid, fused_prefill, slot_causal,
+                   block_causal, uniform_slot):
+    """The write slot of a cached forward over ``s`` cache columns and the
+    complete key mask of its attention layers (None for a prefill into an
+    empty cache, which the prefill kernel runs)."""
     b, t, _ = x.shape
-    s = ck_all.shape[2]
     if isinstance(cache_len, torch.Tensor):
         slot = cache_len.to(torch.int64)
         if uniform_slot and slot.dim() != 0:
@@ -543,19 +708,105 @@ def stack_forward(
         raise ValueError("slot_causal=False needs key_valid, the only gate left")
 
     if fused_prefill and t > 1 and isinstance(slot, int) and slot == 0:
-        mask = None
-    else:
-        mask = _attention_mask(b, t, s, slot, x.device, attn_mask, key_valid, slot_causal,
-                               block_causal)
+        return slot, None
+    return slot, _attention_mask(b, t, s, slot, x.device, attn_mask, key_valid, slot_causal,
+                                 block_causal)
 
-    for layer in range(int(ck_all.shape[0])):
-        lp = {name: w[layer] for name, w in per_layer.items()}
-        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
-                                  tp, sp)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if sp is not None:
-        x = all_gather(x, 1, sp)
-    return x, (ck_all, cv_all)
+
+# ---------------------------------------------------------------------------
+# The hybrid talker: short convolutions beside attention, routed experts
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask, key_valid,
+                    fused_prefill, slot_causal, block_causal, uniform_slot, conv_state,
+                    expert_hits):
+    """The cached forward of a hybrid talker, layer by layer as ``cfg.schedule``
+    orders them: ``x + op(norm(x))`` with ``op`` the attention (its own KV
+    cache layer) or the short convolution (its own ``conv_state`` layer),
+    then ``+ ffn(norm(x))`` with ``ffn`` the dense SwiGLU (layers under
+    ``dense_layers``) or the routed experts; then the final norm."""
+    if cfg.conv_layers and conv_state is None:
+        raise ValueError(f"a {cfg.kind} talker needs conv_state")
+    ck_all, cv_all = kv_caches
+    slot, mask = _slot_and_mask(x, ck_all.shape[2], cache_len, attn_mask, key_valid,
+                                fused_prefill, slot_causal, block_causal, uniform_slot)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    stacks = {kind: {name: _unbind(w) for name, w in params[kind].items()}
+              for kind in ("attn", "conv", "ffn", "moe") if kind in params}
+    seen = collections.Counter()
+
+    def take(kind):
+        """The next layer of stack ``kind``: its weights and its index there."""
+        i = seen[kind]
+        seen[kind] += 1
+        return {name: w[i] for name, w in stacks[kind].items()}, i
+
+    for layer, kind in enumerate(cfg.schedule):
+        if kind == "conv":
+            lp, c = take("conv")
+            with profiling.region("talker/conv"):
+                x = _conv_block(lp, cfg, x, conv_state[c], attn_mask)
+        else:
+            lp, a = take("attn")
+            with profiling.region("talker/attention"):
+                x = _attention_cached(lp, cfg, x, rope, ck_all, cv_all, a, slot, attn_mask, mask)
+        if cfg.n_experts and layer >= cfg.dense_layers:
+            lp, m = take("moe")
+            with profiling.region("talker/moe"):
+                x = _moe_block(lp, cfg, x, None if expert_hits is None else expert_hits[m])
+        else:
+            lp, _ = take("ffn")
+            with profiling.region("talker/mlp"):
+                x = _mlp(lp, cfg, x)
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), (ck_all, cv_all)
+
+
+def _conv_block(params, cfg, x, state, attn_mask):
+    """The gated short convolution and residual: ``B, C, x~ = in_proj(norm(x))``,
+    ``u = B * x~``, ``y = C * conv(u)`` with ``conv`` causal and depthwise over
+    ``CONV_TAPS`` taps, ``x + out_proj(y)``. ``state`` ``(B, K - 1, H)`` f32
+    holds the ``u`` of the K - 1 positions before ``x`` and is replaced by the
+    last K - 1 of this call (in place). ``u`` is 0 where ``attn_mask`` is
+    False, so left padding never reaches a real token. f32 from ``u`` to
+    ``y``."""
+    hd = cfg.hidden
+    bcx = qmm(rms_norm(x, params["conv_norm"], cfg.rms_eps), params["in_proj"])
+    u = bcx[..., :hd].float() * bcx[..., 2 * hd:]
+    if attn_mask is not None:
+        u = u.masked_fill(~attn_mask.bool()[..., None], 0.0)
+    full = torch.cat([state, u], dim=1)  # (B, K - 1 + T, H)
+    taps = params["conv_w"].shape[-1]
+    conv = (full.unfold(1, taps, 1) * params["conv_w"]).sum(dim=-1)  # (B, T, H)
+    state.copy_(full[:, -(taps - 1):])
+    y = (bcx[..., hd:2 * hd].float() * conv).to(x.dtype)
+    return x + qmm(y, params["out_proj"])
+
+
+def route_experts(h, router, bias, cfg: TransformerConfig):
+    """The sigmoid router, in f32: ``s = sigmoid(h @ router)``, the
+    ``experts_per_token`` largest of ``s + bias`` chosen, their ``s``
+    normalised to sum to one (+ 1e-6; LFM2's ``norm_topk_prob``, with
+    ``routed_scaling_factor`` 1). ``h`` ``(N, H)``; returns ``(idx (N, k) int64,
+    weight (N, k) f32)``."""
+    scores = torch.sigmoid(h.float() @ router.float())
+    _, idx = torch.topk(scores + bias, cfg.experts_per_token, dim=-1)
+    weight = scores.gather(1, idx)
+    return idx, weight / (weight.sum(dim=-1, keepdim=True) + 1e-6)
+
+
+def _moe_block(params, cfg, x, hits):
+    """The routed experts and residual. A decode step (T == 1) runs the
+    experts kernel, which reads only the experts its rows chose; a prefill
+    groups the tokens by expert after a host read of the counts. ``hits``
+    ``(E,)`` int32, if given, becomes 1 for each expert chosen, else 0 (on
+    the device)."""
+    b, t, hd = x.shape
+    h = rms_norm(x, params["mlp_norm"], cfg.rms_eps).reshape(b * t, hd)
+    idx, weight = route_experts(h, params["router"], params["expert_bias"], cfg)
+    run = moe_experts if t == 1 else grouped_experts
+    out = run(h, idx, weight, params["w_gate"], params["w_up"], params["w_down"], hits)
+    return x + out.view(b, t, hd).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -600,8 +851,17 @@ def kv_cache_dtype(batch=None, max_len=None):
 def make_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None):
     if dtype is None:
         dtype = kv_cache_dtype(batch, max_len)
-    shape = (cfg.layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.attn_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
     return (
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def make_conv_state(cfg: TransformerConfig, batch: int, device=None) -> Optional[torch.Tensor]:
+    """The short convolutions' state ``(Lc, B, CONV_TAPS - 1, H)`` f32,
+    zeroed (a new sequence), or None for a talker without them."""
+    if not cfg.conv_layers:
+        return None
+    return torch.zeros((cfg.conv_layers, batch, CONV_TAPS - 1, cfg.hidden),
+                       dtype=torch.float32, device=device)

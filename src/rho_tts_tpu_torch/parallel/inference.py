@@ -105,9 +105,19 @@ def enable_parallelism(model, mode: str, n_devices=None) -> None:
         enable_tensor_parallel(model, create_mesh(n, model_parallel=mp))
 
 
+def _require_dense(model, what: str) -> None:
+    """A Qwen-class model with a hybrid talker raises ``NotImplementedError``."""
+    from ..models.transformer import require_dense
+
+    talker = getattr(getattr(model, "config", None), "talker", None)
+    if talker is not None:
+        require_dense(talker, what)
+
+
 def enable_data_parallel(model, mesh: Mesh) -> None:
     """Switch a model to mesh execution in place: weights replicated, batch
     rows over ``data`` (the model pads a batch to a multiple of it)."""
+    _require_dense(model, "a data-parallel mesh")
     replicate_params(model.params, mesh)
     model.mesh = mesh
     logger.info("Data-parallel inference enabled: mesh=%s", mesh.shape)
@@ -124,6 +134,7 @@ def enable_sequence_parallel(model, mesh: Mesh) -> None:
     into the cache, which is then the decode layout. Decode is DP. A model
     without a sequence-parallel prefill (Chatterbox's CFG prefill) raises.
     """
+    _require_dense(model, "a sequence-parallel mesh")
     if not hasattr(model, "seq_parallel"):
         raise ValueError(
             f"{type(model).__name__} has no sequence-parallel prefill; use "
@@ -149,6 +160,7 @@ def enable_tensor_parallel(model, mesh: Mesh) -> None:
     """
     from ..models.qwen.model import _register
 
+    _require_dense(model, "a tensor-parallel mesh")
     mp = mesh.shape.get("model", 1)
     talker = model.config.talker
     if talker.kv_heads % mp != 0:

@@ -429,6 +429,9 @@ class ServingEngine:
                  stream_context: int = 32, max_queue: Optional[int] = None,
                  draft_model: Optional[QwenTTSModel] = None, gamma: int = 4,
                  residual_mode: str = "draft"):
+        tfm.require_dense(model.config.talker, "ServingEngine")
+        if draft_model is not None:
+            tfm.require_dense(draft_model.config.talker, "speculative serving")
         self.model = model
         self.cfg = model.config
         self.device = torch.device(model.device)

@@ -30,7 +30,10 @@ by name and :func:`reset` clears them.
 Always-on spans: ``qwen/model_init``, ``qwen/synthesize`` and
 ``qwen/generate_codes`` (the calls, attrs ``rows`` and ``frames``),
 ``qwen/prompt_build``, ``qwen/prefill``, ``qwen/decode_chunk`` (attrs
-``steps`` and ``graph``: ``"capture"``, ``"replay"`` or ``"eager"``),
+``steps`` and ``graph``: ``"capture"``, ``"replay"`` or ``"eager"``; a
+talker with routed experts adds ``experts_touched``, a list a step of the
+distinct experts each expert layer ran, counted on the device and fetched
+with the call's codes),
 ``qwen/done_check`` (the host's wait on the lagged all-done flag),
 ``qwen/fetch_done``, ``qwen/fetch_codes``, ``qwen/vocode``, and the
 ``serve/``, ``chatterbox/``, ``generate/``, ``validate/`` and ``dsp/``
@@ -43,11 +46,12 @@ the granularity of its layers, so that a trace names the layer whose host
 code runs in each idle gap of the device: ``qwen/chunk_prologue``,
 ``qwen/step``, ``qwen/embed``, ``qwen/sample``, ``qwen/residuals``
 (``models/qwen/model.py``: ``_decode_chunk``); ``talker/attention``,
-``talker/mlp`` (``models/transformer.py``: each cached block);
+``talker/mlp``, and a hybrid talker's ``talker/conv`` and ``talker/moe``
+(``models/transformer.py``: each cached block);
 ``quant/int8_matmul``, ``quant/w8a8_matmul`` (``models/quantization.py``);
 and ``kernels/attention``, ``kernels/decode_attention``,
-``kernels/int4_matmul``, ``kernels/w8a8_matmul`` around the launches of
-``ops/cuda``.
+``kernels/int4_matmul``, ``kernels/w8a8_matmul``, ``kernels/moe_experts``
+around the launches of ``ops/cuda``.
 
 **Traces**: :func:`start_trace` / :func:`stop_trace` (directory from the
 argument or the ``RHO_TTS_TPU_TRACE_DIR`` env var) run a ``torch.profiler``
