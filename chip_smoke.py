@@ -16,7 +16,8 @@ Phases, each fatal on failure:
    int4 and w8a8 cases with their launch plans; and every kernel at the
    Chatterbox shapes (head_dim 64, group 1, K = 1024 / 4096, CFG rows;
    ``chatterbox_cases`` in each kernel's entry); the routed-experts kernel
-   at LFM2-8B-A1B's expert layer (see :func:`check_moe_experts`);
+   at LFM2-8B-A1B's expert layer (see :func:`check_moe_experts`); the int8
+   GEMV at the 1.7B's decode shapes (see :func:`check_int8_gemv`);
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -600,6 +601,140 @@ def check_int4(qz, i4, gen, parent=None) -> dict:
     }
 
 
+INT8_GEMV_CHAIN = 24  # distinct weights a timed graph launches back to back
+
+
+def _dequant_route(x, q, s):
+    """The route the int8 GEMV replaces: a bf16 copy of the weight, the
+    library GEMM, the f32 scale, the cast."""
+    return ((x @ q.to(x.dtype)).float() * s).to(x.dtype)
+
+
+def _chain_graph(fn, args_list):
+    """``fn(*args)`` over ``args_list`` (distinct weights: past the 50 MB L2
+    together), captured back to back in one CUDA graph as the decode step's
+    graph holds them, and replayed once."""
+    for args in args_list:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for args in args_list:
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def chain_ms(fn, args_list, replays: int = 20) -> float:
+    """Mean device ms of one call in :func:`_chain_graph`'s graph, launches
+    and the gaps between them included."""
+    graph = _chain_graph(fn, args_list)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(args_list))
+
+
+def chain_kernel_ms(fn, args_list, name: str) -> float:
+    """Mean device ms of the kernels named ``name`` in :func:`_chain_graph`'s
+    graph, from a ``torch.profiler`` trace of three replays: the kernel
+    alone, without the gaps between the graph's launches."""
+    graph = _chain_graph(fn, args_list)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    for item in prof.key_averages():
+        if name in item.key:
+            return item.self_device_time_total / item.count / 1e3
+    raise AssertionError(f"no {name} kernel in the trace")
+
+
+def check_int8_gemv(qz, g8, gen) -> dict:
+    """int8 GEMV at the 1.7B's four decode shapes for 1, 5, 8 and 64 rows,
+    ragged N and K, and at the Chatterbox shapes; every case launched twice
+    and bit-identical (the K-splits merge in a fixed order). Tolerance: one
+    bf16 ulp of the largest output, 1e-2 * max|ref| (both round an f32 sum
+    of the same products, in other orders). At 8 rows, each 1.7B shape is
+    timed as one flushed launch (``ms``) and as ``chain_ms``: 24 distinct
+    weights back to back in a CUDA graph, as the step runs them, and as
+    ``chain_kernel_ms``, the kernel's own device time in that graph (the
+    profiler's, without the gaps between launches); beside it the dequant
+    route it replaces (``library``)."""
+    cases = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = ((2048, 6144), (6144, 2048), (2048, 4096), (2048, 2048))  # gate/up, down, qkv, o
+    for m, k, n in (
+        *((m, k, n) for k, n in shapes for m in (8, 1, 5, 64)),  # the first is the main case
+        (8, 2048, 2000),  # ragged N: a partial column tile
+        (13, 1992, 1936),  # ragged K: half a 16-row step; 2 row tiles
+        (64, 1000, 272),
+        *((m, k, n) for k, n in CB_MATMULS for m in (2, 16)),  # Chatterbox: CFG rows
+    ):
+        qw = _quantized_weight(qz.quantize_weight, k, n, gen)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        args = (x, qw["q"], qw["s"])
+        out = g8.int8_gemv(*args)
+        out2 = g8.int8_gemv(*args)
+        ref = g8.reference_int8_gemv(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        case = {"m": m, "k": k, "n": n, "max_abs_err": err,
+                "plan": g8.plan(k, n, sms, lambda sp: g8._clusters(m, sp, 0)),
+                "tol": 1e-2 * ref.float().abs().max().item(),
+                "bit_identical_across_launches": bool(torch.equal(out, out2)),
+                "dequant_route_max_abs_err":
+                    (_dequant_route(*args).float() - ref.float()).abs().max().item()}
+        cases.append(case)
+        if not bool(torch.isfinite(out).all()) or err > case["tol"] \
+                or not case["bit_identical_across_launches"]:
+            raise AssertionError(f"int8 GEMV disagrees with its plain version: {case}")
+        if (k, n) not in shapes or m != 8:
+            continue
+        chain = []
+        for _ in range(INT8_GEMV_CHAIN):
+            cw = _quantized_weight(qz.quantize_weight, k, n, gen)
+            chain.append((x, cw["q"], cw["s"]))
+        case["ms"] = time_ms(lambda: g8.int8_gemv(*args))
+        case["chain_ms"] = chain_ms(g8.int8_gemv, chain)
+        case["chain_kernel_ms"] = chain_kernel_ms(g8.int8_gemv, chain, "int8_gemv_kernel")
+        case["host_us"] = host_us(lambda: g8.int8_gemv(*args))
+        case["plain_ms"] = time_ms(lambda: g8.reference_int8_gemv(*args))
+        case["library_ms"] = time_ms(lambda: _dequant_route(*args))
+        case["library_chain_ms"] = chain_ms(_dequant_route, chain)
+        case["bound_ms"], case["bound_by"] = bound_ms(
+            nbytes(x, qw["q"], qw["s"], out), 2 * m * k * n, BF16_FLOP_PER_S)
+        case["chain_bound_share"] = case["bound_ms"] / case["chain_ms"]
+        case["kernel_bound_share"] = case["bound_ms"] / case["chain_kernel_ms"]
+        if (k, n) == shapes[0]:
+            for mm in (1, 64):  # the chain at the smallest and largest rows
+                xm = torch.randn((mm, k), generator=gen, device="cuda").to(torch.bfloat16)
+                case[f"chain_ms_m{mm}"] = chain_ms(
+                    g8.int8_gemv, [(xm, q, sc) for _, q, sc in chain])
+        del chain
+    main = cases[0]
+    return {
+        "name": "int8_gemv", "route": "cuda",
+        "source": "src/rho_tts_tpu_torch/csrc/int8_gemv.cu",
+        "replaces": "none: the port's own (XLA fuses the convert into the dot)",
+        "shape": f"x({main['m']},{main['k']}) bf16 x q({main['k']},{main['n']}) int8 -> bf16",
+        "plan": main["plan"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases), "tol": main["tol"],
+        "cases": cases, "ms": main["ms"], "kernel_ms": main["ms"],
+        "chain_ms": main["chain_ms"], "chain_kernel_ms": main["chain_kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "library_chain_ms": main["library_chain_ms"],
+        "host_us": main["host_us"],
+        "library": "x @ q.to(bf16), then (y.float() * s).to(bf16): the dequant route",
+    }
+
+
 # Chatterbox "standard" talker: hidden 1024, 30 layers, 16 query and 16 KV
 # heads of 64 (group 1), ffn 4096; CFG folds each request into 2 rows.
 CB_HEADS, CB_D = 16, 64
@@ -923,6 +1058,7 @@ KERNEL_NAMES = {
     "int4_matmul": re.compile(r"\bgemv_mma_kernel\b|\bgemv_f32_kernel\b|\bmma_kernel<\d"),
     "w8a8_matmul": re.compile(r"\bwgmma_kernel<|\bmma_kernel<\D"),
     "moe_experts": re.compile(r"\bmoe_kernel<"),
+    "int8_gemv": re.compile(r"\bint8_gemv_kernel<"),
 }
 
 
@@ -939,9 +1075,20 @@ class GraphReplays:
     launches the same kernels every time). So the counts of a replayed
     decode come from the device's trace, not from the model's code.
     ``traces`` keeps each graph's agreed counts and its number of device
-    operations. Only the kernels of ``kmods`` are counted."""
+    operations. Only the kernels of ``kmods`` are counted.
+
+    A trace can lose the first device operations of its window, more of
+    them late in a long process: none early in a run, later the first one,
+    later still the first few of a graph's kernels too (a count one short
+    a replay, even behind 25 ms of spin). So ``LEAD_GUARDS`` short spin
+    kernels and one of ``GUARD_CYCLES`` run just before the replay inside
+    the traced window, and one just after it: a lost operation is a
+    guard's, and a trace that kept no leading guard is refused. Each traced
+    replay is logged with its counts and the guards its trace kept."""
 
     TRIES = 4  # traced replays of a graph before its traces count as disagreeing
+    LEAD_GUARDS = 128  # short spins before the long one
+    GUARD_CYCLES = 50_000_000  # about 25 ms of the card's clock
 
     def __init__(self, kmods):
         self.kmods = kmods
@@ -972,6 +1119,13 @@ class GraphReplays:
         for name, n in counts.items():
             self.kmods[name].launches += n * times
 
+    @classmethod
+    def lead_guards(cls) -> None:
+        """The spin kernels that open a traced window (see the class doc)."""
+        for _ in range(cls.LEAD_GUARDS):
+            torch.cuda._sleep(1000)
+        torch.cuda._sleep(cls.GUARD_CYCLES)
+
     def _traced(self, graph, state: dict) -> None:
         from rho_tts_tpu_torch.utils import profiling
 
@@ -981,13 +1135,24 @@ class GraphReplays:
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
+            self.lead_guards()
             self._replay(graph)
+            torch.cuda._sleep(self.GUARD_CYCLES)
             torch.cuda.synchronize()
         cuda = torch.autograd.DeviceType.CUDA
         names = [e.name() for e in prof.profiler.kineto_results.events()
                  if e.device_type() == cuda]
+        spin = ["spin_kernel" in n for n in names]
+        lead = spin.index(False) if False in spin else len(spin)
+        trail = len(spin) - lead - spin[lead:].count(False)
+        names = [n for n in names if "spin_kernel" not in n]
         counts = {k: sum(1 for n in names if pat.search(n)) for k, pat in KERNEL_NAMES.items()
                   if k in self.kmods}
+        log(f"graph trace: {json.dumps(counts)}, {len(names)} device operations, guards kept: "
+            f"{lead} of {self.LEAD_GUARDS + 1} before, {trail} of 1 after")
+        if not lead:
+            raise AssertionError("a graph's traced replay kept no leading guard: the trace may "
+                                 f"have lost the graph's first kernels ({counts})")
         if not counts["decode_gqa_attention"]:
             raise AssertionError(f"a graph's replay traced {len(names)} device operations, "
                                  f"{counts} of the port's kernels")
@@ -997,9 +1162,50 @@ class GraphReplays:
         if agreed:
             state["counts"] = counts
             self._add(counts, len(seen))
-            self.traces.append(dict(counts, device_ops=len(names), traced=len(seen)))
+            self.traces.append(dict(counts, device_ops=len(names), traced=len(seen),
+                                    lead_guards_kept=lead))
         elif len(seen) >= self.TRIES:
             raise AssertionError(f"{len(seen)} traced replays of one graph disagree: {seen}")
+
+
+class SmallPrefills:
+    """Counts the prefills of an int8 bf16 talker on the card with at most
+    ``int8_gemv.MAX_ROWS`` rows in all (a batch of one on a 64-slot prompt)
+    and no w8a8 prefill: their five matmuls a layer take the int8 GEMV, as
+    a decode step's do. Wraps ``_prefill`` in the model module and in
+    ``serving``, which imports it."""
+
+    def __init__(self, qmodel):
+        from rho_tts_tpu_torch import serving
+        from rho_tts_tpu_torch.models import quantization
+        from rho_tts_tpu_torch.ops.cuda import int8_gemv
+
+        self.owners = (qmodel, serving)
+        self.max_rows = int8_gemv.MAX_ROWS
+        self.w8a8 = quantization._w8a8_prefill_enabled
+        self.n = 0
+        self.saved = []
+
+    def _wrap(self, inner):
+        def prefill(params, cfg, ids_slotted, *args, **kwargs):
+            w = params["talker"]["blocks"]["wqkv"]
+            if ids_slotted.is_cuda and cfg.talker.dtype == torch.bfloat16 \
+                    and isinstance(w, dict) and "q" in w \
+                    and ids_slotted.numel() <= self.max_rows and not self.w8a8():
+                self.n += 1
+            return inner(params, cfg, ids_slotted, *args, **kwargs)
+
+        return prefill
+
+    def __enter__(self):
+        self.saved = [(owner, owner._prefill) for owner in self.owners]
+        for owner, fn in self.saved:
+            owner._prefill = self._wrap(fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, fn in self.saved:
+            owner._prefill = fn
 
 
 class StageClock:
@@ -1103,18 +1309,27 @@ def synthesize_codes(model, kw, texts=TEXTS):
 
 
 def run_main_path(qmodel, qz, kmods) -> dict:
-    """Phase 4: 1.7B weight-only int8, 4 chunks; no int4 or w8a8 launch."""
+    """Phase 4: 1.7B weight-only int8, 4 chunks; no int4 or w8a8 launch.
+    Every decode matmul runs in the int8 GEMV; only the prefills' (the
+    warm-up's and the timed call's) take the dequant route."""
     cfg = qmodel.PRESETS["1.7B"]
     t0 = time.perf_counter()
     model = qmodel.QwenTTSModel(cfg, seed=0, quantization="int8", device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    qz.dequant_calls = 0
     out, _codes, _waves = timed_synthesize(
         qmodel, model, kmods, 4 * qmodel._chunk(),
         lambda layers, steps: {"prefill_gqa_attention": layers,
                                "decode_gqa_attention": layers * steps,
-                               "w8a8_matmul": 0, "int4_matmul": 0},
+                               "w8a8_matmul": 0, "int4_matmul": 0,
+                               "int8_gemv": 5 * layers * steps},
     )
+    want = 2 * 5 * cfg.talker.layers  # two prefills, five matmuls a layer
+    if qz.dequant_calls != want:
+        raise AssertionError(f"phase 4: {qz.dequant_calls} int8 matmuls took the dequant "
+                             f"route, expected {want} (the two prefills' only)")
+    out["dequant_calls"] = qz.dequant_calls
     out["init_s"] = init_s
     out["talker_weight_bytes"] = qz.quantized_bytes(model.params["talker"])
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1156,7 +1371,8 @@ def run_int4_path(qmodel, qz, kmods, build_dir: str) -> dict:
         qmodel, served, kmods, frames,
         lambda layers, steps: {"prefill_gqa_attention": layers,
                                "decode_gqa_attention": layers * steps,
-                               "w8a8_matmul": 0, "int4_matmul": 5 * layers * (1 + steps)},
+                               "w8a8_matmul": 0, "int4_matmul": 5 * layers * (1 + steps),
+                               "int8_gemv": 0},
     )
     if out["launches"]["int4_matmul"] != 35_980:
         raise AssertionError(f"int4 launched {out['launches']['int4_matmul']}x, not 35,980")
@@ -1181,7 +1397,8 @@ def run_w8a8_prefill(qmodel, kmods, int8_prefill_ms: float) -> dict:
             qmodel, model, kmods, qmodel._chunk(),
             lambda layers, steps: {"prefill_gqa_attention": layers,
                                    "decode_gqa_attention": layers * steps,
-                                   "w8a8_matmul": 5 * layers, "int4_matmul": 0},
+                                   "w8a8_matmul": 5 * layers, "int4_matmul": 0,
+                                   "int8_gemv": 5 * layers * steps},
         )
     finally:
         _restore_env("RHO_TTS_TPU_W8A8_PREFILL", saved)
@@ -1344,7 +1561,7 @@ def run_generate_path(qmodel, kmods, build_dir: str, smi: str) -> dict:
 
     # -- b. checks --------------------------------------------------------
     want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
-            "w8a8_matmul": 0, "int4_matmul": 0}
+            "w8a8_matmul": 0, "int4_matmul": 0, "int8_gemv": 5 * layers * steps}
     if launches != want:
         raise AssertionError(f"generate(): launches {launches}, expected {want} ({steps} steps)")
     if finalize_fetches != 1:
@@ -1482,7 +1699,7 @@ def run_generate_path(qmodel, kmods, build_dir: str, smi: str) -> dict:
     arrays, lens, bucket = cmodel._build_prompt_arrays([TEXTS[1]], None, "English", ref_path,
                                                       TEXTS[0])
     want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * csteps,
-            "w8a8_matmul": 0, "int4_matmul": 0}
+            "w8a8_matmul": 0, "int4_matmul": 0, "int8_gemv": 5 * layers * csteps}
     if res is None or not bool(torch.isfinite(res.audio).all()) or claunches != want \
             or ref_codes.shape != (10 * sr // hop, cfg.codec.n_codebooks) \
             or int(arrays["code_mask"].sum()) != ref_codes.shape[0]:
@@ -1707,7 +1924,7 @@ def run_validate_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> di
                    "stt_ids": wmodel.fetches - fetch0[1], "finalize": dsp.fetches - fetch0[2]}
         steps = len(clock.events["decode_chunk"]) * chunk
         want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
-                "w8a8_matmul": 0, "int4_matmul": 0}
+                "w8a8_matmul": 0, "int4_matmul": 0, "int8_gemv": 5 * layers * steps}
         if launches_a != want or len(outs) != 1:
             raise AssertionError(f"validate (a): launches {launches_a} vs {want}, "
                                  f"{len(outs)} model calls")
@@ -1756,7 +1973,7 @@ def run_validate_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> di
         launches_b = {name: mod.launches for name, mod in kmods.items()}
         b_steps = len(bclock.events["decode_chunk"]) * chunk
         want_b = {"prefill_gqa_attention": 2 * layers, "decode_gqa_attention": layers * b_steps,
-                  "w8a8_matmul": 0, "int4_matmul": 0}
+                  "w8a8_matmul": 0, "int4_matmul": 0, "int8_gemv": 5 * layers * b_steps}
         if len(outs) != 2 or len(drift_probs) != 2 or launches_b != want_b:
             raise AssertionError(f"validate (b): {len(outs)} model calls, launches {launches_b}"
                                  f" vs {want_b}")
@@ -1982,7 +2199,8 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
         mod.launches = 0
     dispatches0, admissions0, frames0 = eng.dispatches, eng.admissions, eng.frames_delivered
     try:
-        reqs, wall = _drive(eng, texts, lengths, stream_every=2)
+        with SmallPrefills(qmodel) as small:
+            reqs, wall = _drive(eng, texts, lengths, stream_every=2)
     finally:
         serving._serve_decode_chunk = inner_chunk
         restore()
@@ -1998,7 +2216,8 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     dispatches, admissions = eng.dispatches - dispatches0, eng.admissions - admissions0
     steps = dispatches * chunk
     want = {"prefill_gqa_attention": layers * admissions,
-            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0,
+            "int8_gemv": 5 * layers * (steps + small.n)}
     if not caught or launches != want:
         raise AssertionError(f"serving: launches {launches} vs {want}; sync check live {caught}")
     for i, (r, n) in enumerate(zip(reqs, lengths)):
@@ -2022,7 +2241,7 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
         "latency_p50_s": _percentile(lat, 50), "latency_p99_s": _percentile(lat, 99),
         "ttfa_streamed_p50_s": _percentile(ttfa, 50), "ttfa_streamed_max_s": max(ttfa),
         "dispatches": dispatches, "admission_groups": admissions, "decode_steps": steps,
-        "decode_ms_per_chunk": sum(chunk_ms) / len(chunk_ms),
+        "gemv_prefills": small.n, "decode_ms_per_chunk": sum(chunk_ms) / len(chunk_ms),
         "decode_ms_per_step": sum(chunk_ms) / (len(chunk_ms) * chunk),
         "launches": launches, "host_waits_in_dispatch": 0,
         "streamed_pieces_concatenate_to_result": True,
@@ -2072,13 +2291,15 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     for mod in kmods.values():
         mod.launches = 0
     rounds0, adm0 = seng.spec_rounds, seng.admissions
-    sreqs, swall = _drive(seng, texts[:8], [128] * 8)
+    with SmallPrefills(qmodel) as small:
+        sreqs, swall = _drive(seng, texts[:8], [128] * 8)
     slaunches = {name: mod.launches for name, mod in kmods.items()}
     rounds = seng.spec_rounds - rounds0
     dlayers = draft.config.talker.layers
+    # the int8 target verifies a round in one forward of 8 x (gamma + 1) rows
     swant = {"prefill_gqa_attention": (layers + dlayers) * (seng.admissions - adm0),
              "decode_gqa_attention": dlayers * (seng.gamma + 1) * rounds,
-             "w8a8_matmul": 0, "int4_matmul": 0}
+             "w8a8_matmul": 0, "int4_matmul": 0, "int8_gemv": 5 * layers * (rounds + small.n)}
     frames = sum(r.n_frames for r in sreqs)
     if slaunches != swant or frames != 8 * 128 or not all(
             bool(torch.isfinite(r.result(timeout=60)[0]).all()) for r in sreqs):
@@ -2087,7 +2308,7 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     out["b_speculative"] = {
         "draft": "draft-1.7B (random weights)", "gamma": 4, "residual_mode": "draft",
         "requests": 8, "frames": frames, "warmup_s": swarm, "wall_s": swall,
-        "rounds": rounds, "frames_per_round": frames / rounds,
+        "rounds": rounds, "gemv_prefills": small.n, "frames_per_round": frames / rounds,
         "frames_per_round_per_slot": frames / rounds / 8,
         "rtf": frames / fr / swall, "launches": slaunches,
         "note": "a random draft makes acceptance meaningless: this prices the round's "
@@ -2102,9 +2323,10 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     for mod in kmods.values():
         mod.launches = 0
     t0 = time.perf_counter()
-    codes, stats = speculative_generate_codes(model, draft, texts[1], max_frames=128,
-                                              min_frames=128, gamma=4)
-    torch.cuda.synchronize()
+    with SmallPrefills(qmodel) as small:
+        codes, stats = speculative_generate_codes(model, draft, texts[1], max_frames=128,
+                                                  min_frames=128, gamma=4)
+        torch.cuda.synchronize()
     one_wall = time.perf_counter() - t0
     one_launches = {name: mod.launches for name, mod in kmods.items()}
     # The host reads the loop condition once every CHECK_EVERY rounds: up to
@@ -2112,14 +2334,16 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
     dispatched = min(-(-stats["rounds"] // CHECK_EVERY) * CHECK_EVERY, 128)
     one_want = {"prefill_gqa_attention": layers + dlayers,
                 "decode_gqa_attention": dlayers * 5 * dispatched,
-                "w8a8_matmul": 0, "int4_matmul": 0}
+                "w8a8_matmul": 0, "int4_matmul": 0,
+                "int8_gemv": 5 * layers * (dispatched + small.n)}
     # (the codes stop at a sampled special token, as in the JAX package)
     if stats["emitted"] != 128 or one_launches != one_want:
         raise AssertionError(f"single-stream speculative decode: {codes.shape} codes, "
                              f"launches {one_launches} vs {one_want}")
     out["b_single_stream"] = {"frames_before_a_special_token": int(codes.shape[0]),
                               "wall_s": one_wall, "rtf": stats["emitted"] / fr / one_wall,
-                              "rounds_dispatched": dispatched, **stats,
+                              "rounds_dispatched": dispatched, "gemv_prefills": small.n,
+                              **stats,
                               "launches": one_launches}
     log(f"phase 9 b_single_stream ({smi}): {json.dumps(out['b_single_stream'])}")
     del draft, seng, model
@@ -2144,13 +2368,15 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
         mod.launches = 0
     d0, a0 = engine.dispatches, engine.admissions
     t0 = time.perf_counter()
-    results = tts.generate(TEXTS, output_path=os.path.join(out_dir, "out"))
-    torch.cuda.synchronize()
+    with SmallPrefills(qmodel) as small:
+        results = tts.generate(TEXTS, output_path=os.path.join(out_dir, "out"))
+        torch.cuda.synchronize()
     cwall = time.perf_counter() - t0
     claunches = {name: mod.launches for name, mod in kmods.items()}
     cwant = {"prefill_gqa_attention": layers * (engine.admissions - a0),
              "decode_gqa_attention": layers * chunk * (engine.dispatches - d0),
-             "w8a8_matmul": 0, "int4_matmul": 0}
+             "w8a8_matmul": 0, "int4_matmul": 0,
+             "int8_gemv": 5 * layers * (chunk * (engine.dispatches - d0) + small.n)}
     if not isinstance(results, list) or len(results) != len(TEXTS) or None in results \
             or claunches != cwant or not all(bool(torch.isfinite(r.audio).all()) and
                                              os.path.exists(r.path) for r in results):
@@ -2160,7 +2386,7 @@ def run_serving_path(qmodel, kmods, build_dir: str, smi: str, gen7: dict) -> dic
         "ring": engine.ring, "warmup_s": cwarm, "generate_wall_s": cwall, "audio_s": caudio,
         "rtf": caudio / cwall, "phase7_generate_wall_s": gen7["generate_wall_s"],
         "phase7_audio_s": gen7["audio_s"], "dispatches": engine.dispatches - d0,
-        "launches": claunches}
+        "gemv_prefills": small.n, "launches": claunches}
     log(f"phase 9 c_served_generate ({smi}): {json.dumps(out['c_served_generate'])}")
     tts.close()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -2272,12 +2498,15 @@ def _zero(kmods):
         mod.launches = 0
 
 
-def _cb_want(layers, prefills=0, steps=0, int4=False):
+def _cb_want(layers, prefills=0, steps=0, quant="int8"):
     """Exact launch counts: the prefill kernel once a layer a prefill, the
     decode kernel once a layer a step; int4 in the 5 matmuls of every layer
-    of every forward."""
+    of every forward; the int8 GEMV in those of every decode step (a
+    prefill has at least 2 x 64 rows, CFG pairs on a 64-slot bucket)."""
     return {"prefill_gqa_attention": layers * prefills, "decode_gqa_attention": layers * steps,
-            "w8a8_matmul": 0, "int4_matmul": 5 * layers * (prefills + steps) if int4 else 0}
+            "w8a8_matmul": 0,
+            "int4_matmul": 5 * layers * (prefills + steps) if quant == "int4" else 0,
+            "int8_gemv": 5 * layers * steps if quant == "int8" else 0}
 
 
 def _cb_timed_generate(tts, cbm, kmods, layers, text, runs: int = 3, probe=None) -> dict:
@@ -2298,8 +2527,7 @@ def _cb_timed_generate(tts, cbm, kmods, layers, text, runs: int = 3, probe=None)
             wall = time.perf_counter() - t0
         launches = _launches(kmods)
         steps = clock.n("_decode_chunk") * cbm.CHUNK
-        want = _cb_want(layers, clock.n("_prefill"), steps,
-                        int4=tts.model.quantization == "int4")
+        want = _cb_want(layers, clock.n("_prefill"), steps, quant=tts.model.quantization)
         if launches != want or clock.n("_prefill") != 1 or result is None \
                 or not bool(torch.isfinite(result.audio).all()):
             raise AssertionError(f"chatterbox generate(): launches {launches} vs {want}, "
@@ -2627,7 +2855,7 @@ def run_chatterbox_path(kmods, build_dir: str, smi: str, device: str = "cuda") -
         ewall = time.perf_counter() - t0
     e_launches = _launches(kmods)
     steps = clock.n("_decode_chunk") * cbm.CHUNK
-    e_want = _cb_want(layers, clock.n("_prefill"), steps, int4=True)
+    e_want = _cb_want(layers, clock.n("_prefill"), steps, quant="int4")
     if result is None or e_launches != e_want:
         raise AssertionError(f"chatterbox int4: launches {e_launches} vs {e_want}")
     out["e_int4"] = {"wall_s": ewall, "audio_s": result.duration_sec,
@@ -2973,7 +3201,8 @@ def run_training_path(qmodel, kmods, build_dir: str, smi: str, device: str = "cu
     layers = cfg.talker.layers
     steps = len(clock.events["decode_chunk"]) * qmodel._chunk()
     want = {"prefill_gqa_attention": layers * len(clock.events["prefill"]),
-            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0,
+            "int8_gemv": 5 * layers * steps if device == "cuda" else 0}
     if launches != want or len(results) != len(TEXTS) \
             or not all(bool(torch.isfinite(r.audio).all()) for r in results):
         raise AssertionError(f"LoRA generate(): launches {launches} vs {want}")
@@ -3030,7 +3259,8 @@ def run_training_path(qmodel, kmods, build_dir: str, smi: str, device: str = "cu
     layers = cfg.talker.layers
     want = {"prefill_gqa_attention": layers * rollouts["prefills"],
             "decode_gqa_attention": layers * rollouts["decode_steps"],
-            "w8a8_matmul": 0, "int4_matmul": 0}
+            "w8a8_matmul": 0, "int4_matmul": 0,
+            "int8_gemv": 5 * layers * rollouts["decode_steps"] if device == "cuda" else 0}
     if rollouts["launches"] != want or rollouts["prefills"] != rollouts["batches"]:
         raise AssertionError(f"distill rollouts: launches {rollouts['launches']} vs {want}")
     ov = stats["overlaps"]
@@ -3072,20 +3302,23 @@ def _local_shape(k, n, kind, mp):
 
 def check_per_rank_shapes(attn, dec, qz, w8, i4, sharding, gen, device="cuda",
                           iters: int = 20) -> dict:
-    """Phase 12 e: the four kernels at the shapes one rank of a TP (or SP)
-    mesh of mp = 2 and 4 launches, for the 1.7B and Chatterbox "standard":
+    """Phase 12 e: the kernels at the shapes one rank of a TP (or SP) mesh
+    of mp = 2 and 4 launches, for the 1.7B and Chatterbox "standard":
     attention at the local heads; w8a8 and int4 at the column shards and the
     row shards (int4's cut by ``sharding``'s repack from a whole packed
-    weight); the SP prefill: every query shard at its ``q_offset``, the
+    weight); the int8 GEMV at the column shards (a row shard's partial
+    products are summed over the ranks before the scale, on the dequant
+    route); the SP prefill: every query shard at its ``q_offset``, the
     shards joined and held against the plain version and the unsharded
     kernel. Each case against its plain version at phase 2's tolerances,
     twice for the same bits, timed beside its bound. Returns the cases by
     kernel name."""
+    from rho_tts_tpu_torch.ops.cuda import int8_gemv as g8
     from rho_tts_tpu_torch.parallel.mesh import Axis
 
     bf = torch.bfloat16
     out = {name: [] for name in ("prefill_gqa_attention", "decode_gqa_attention",
-                                 "w8a8_matmul", "int4_matmul")}
+                                 "w8a8_matmul", "int4_matmul", "int8_gemv")}
 
     def timed(case, kernel, plain, bound):
         case.update(ms=time_ms(kernel, iters=iters), plain_ms=time_ms(plain, iters=iters))
@@ -3165,6 +3398,17 @@ def check_per_rank_shapes(attn, dec, qz, w8, i4, sharding, gen, device="cuda",
                       lambda: w8.reference_w8a8_matmul(*args),
                       bound_ms(nbytes(xq, sx, qw["q"], qw["s"], o1), 2 * m_pre * kl * nl,
                                INT8_OP_PER_S))
+                if kind == "col":
+                    xg = torch.randn((m_dec, kl), generator=gen, device=device).to(bf)
+                    ag = (xg, qw["q"], qw["s"])
+                    o1, o2 = g8.int8_gemv(*ag), g8.int8_gemv(*ag)
+                    ref = g8.reference_int8_gemv(*ag)
+                    case = dict(tag, case="int8 GEMV col shard", m=m_dec, k=kl, n=nl)
+                    _held(out["int8_gemv"], "per-rank int8 GEMV", case, o1, o2, ref,
+                          1e-2 * ref.float().abs().max().item())  # as phase 2's
+                    timed(case, lambda: g8.int8_gemv(*ag), lambda: g8.reference_int8_gemv(*ag),
+                          bound_ms(nbytes(xg, qw["q"], qw["s"], o1), 2 * m_dec * kl * nl,
+                                   BF16_FLOP_PER_S))
                 whole_q4 = _quantized_weight(qz.pack_int4, kk, n, gen)
                 if kind == "col":
                     q4 = {"q4": whole_q4["q4"][:, :nl].contiguous(), "s": whole_q4["s"][:nl]}
@@ -3274,9 +3518,12 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
         models[name].synthesize(TEXTS, **kw)  # warm-up
     _sync(device)
 
-    def attention_want(steps, w8a8=0, int4=0):
+    gemv = 5 * layers if device == "cuda" else 0  # int8 GEMV launches a decode step
+
+    def attention_want(steps, w8a8=0, int4=0, int8=True):
         return {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
-                "w8a8_matmul": w8a8, "int4_matmul": int4}
+                "w8a8_matmul": w8a8, "int4_matmul": int4,
+                "int8_gemv": gemv * steps if int8 else 0}
 
     def run(m, name, frames_, want):
         kw_ = dict(kw, min_frames=frames_, max_frames=frames_)
@@ -3326,7 +3573,8 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
     model4 = qmodel.QwenTTSModel(cfg, seed=0, quantization="int4", device=device)
     inference.enable_tensor_parallel(model4, one)
     b["tp_int4"], _, _ = run(model4, "tp int4", chunk,
-                             lambda st: attention_want(st, int4=5 * layers * (1 + st)))
+                             lambda st: attention_want(st, int4=5 * layers * (1 + st),
+                                                       int8=False))
     del model4
     gc.collect()
     out["b_oneshot"] = b
@@ -3344,11 +3592,13 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
         _zero(kmods)
         collectives.launches = 0
         try:
-            reqs, wall = _drive(eng, texts, lengths, stream_every=2)
+            with SmallPrefills(qmodel) as small:
+                reqs, wall = _drive(eng, texts, lengths, stream_every=2)
         finally:
             restore()
         res = {"wall_s": wall, "dispatches": eng.dispatches, "admission_groups": eng.admissions,
-               "launches": _launches(kmods), "collective_launches": collectives.launches}
+               "gemv_prefills": small.n, "launches": _launches(kmods),
+               "collective_launches": collectives.launches}
         if [r.n_frames for r in reqs] != lengths:
             raise AssertionError(f"phase 12 c: frames {[r.n_frames for r in reqs]} vs {lengths}")
         codes = [r.codes for r in reqs]
@@ -3363,7 +3613,8 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
     c["tp_mesh_of_one"], tp_codes = serve(smodel, device == "cuda")
     steps = c["tp_mesh_of_one"]["dispatches"] * chunk
     want = {"prefill_gqa_attention": layers * c["tp_mesh_of_one"]["admission_groups"],
-            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0}
+            "decode_gqa_attention": layers * steps, "w8a8_matmul": 0, "int4_matmul": 0,
+            "int8_gemv": gemv * (steps + c["tp_mesh_of_one"]["gemv_prefills"])}
     if (c["tp_mesh_of_one"]["launches"] != want or c["tp_mesh_of_one"]["collective_launches"]
             or c["tp_mesh_of_one"]["admission_groups"] < 2):
         raise AssertionError(f"phase 12 c: {c['tp_mesh_of_one']} vs {want}, and more than "
@@ -3394,7 +3645,8 @@ def run_parallel_path(qmodel, kmods, smi: str, device: str = "cuda", preset: str
         wall = time.perf_counter() - t0
         res = {"wall_s": wall, "decode_steps": toks.shape[1] - 1, "launches": _launches(kmods),
                "collective_launches": collectives.launches}
-        want = _cb_want(cb_layers, 1, res["decode_steps"])
+        want = _cb_want(cb_layers, 1, res["decode_steps"],
+                        quant="int8" if device == "cuda" else None)
         if res["launches"] != want or res["collective_launches"]:
             raise AssertionError(f"phase 12 d {name}: {res} vs {want}")
         return res, toks.cpu(), done.cpu()
@@ -3731,7 +3983,9 @@ def run_sharded_training_path(qmodel, kmods, build_dir: str, smi: str, device: s
 
 HOST_MODEL_PATH = "Qwen3-TTS-12Hz-1.7B-CustomVoice"  # phase 7's model
 HOST_KW = dict(speaker="Vivian", quantization="int8", min_audio_sec=1000.0)  # EOS masked
-CANCEL_AFTER_S = 1.0
+#: the cancel fires at this share of part a's timed proxied ``generate``:
+#: inside the call however fast the card decodes
+CANCEL_AT = 0.5
 TRACE_FRAMES = 64  # one decode chunk: a 192-step generate() traces ~1e6 events
 MEM_SLACK_BYTES = 64 << 20
 UI_MODEL_ID, UI_VOICE_ID = "qwen-1.7b-custom", "builtin-vivian"
@@ -3831,11 +4085,12 @@ def _compare_host_runs(proxied: dict, local: dict) -> dict:
 
 def _count_trace_kernels(path: str) -> dict:
     """Kernel events of a ``torch.profiler`` trace named after the attention
-    kernels (the bf16 prefill's tensor-core kernel, the decode kernel)."""
+    kernels (the bf16 prefill's tensor-core kernel, the decode kernel) and
+    the int8 GEMV."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = {"prefill_gqa_attention": "tc_prefill_kernel",
-             "decode_gqa_attention": "split_decode_kernel"}
+             "decode_gqa_attention": "split_decode_kernel", "int8_gemv": "int8_gemv_kernel"}
     kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     out = {k: sum(1 for n in kernels if v in n) for k, v in names.items()}
     out["kernel_events"] = len(kernels)
@@ -3858,7 +4113,7 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
        runs phase 7's int8 model in its own process and CUDA context. The
        same calls on an in-process instance built with the same kwargs: the
        WAVs, segment counts, durations and streamed segments bit-equal;
-    b. a proxied ``generate`` cancelled after ``CANCEL_AFTER_S`` returns
+    b. a proxied ``generate`` cancelled at ``CANCEL_AT`` of its timed wall returns
        None with the worker alive and serving the next call; then the
        worker is killed with a request in flight and the proxy gives the
        JAX package's sequence: a "restarted" error, the restarted worker's
@@ -3926,7 +4181,8 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
                 fired.append(time.perf_counter())
                 token.cancel()
 
-            timer = threading.Timer(CANCEL_AFTER_S, cancel)
+            cancel_after_s = CANCEL_AT * proxied["wall_s"]
+            timer = threading.Timer(cancel_after_s, cancel)
             timer.start()
             cancelled = proxy.generate(TEXTS, os.path.join(root, "cancel", "c"),
                                        cancellation_token=token)
@@ -3968,7 +4224,7 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
                 raise AssertionError(f"phase 14 b: after the kill the proxy gave {crash}")
         finally:
             proxy.close()
-    b = {"cancel_to_none_s": t_none - fired[0], "cancel_after_s": CANCEL_AFTER_S,
+    b = {"cancel_to_none_s": t_none - fired[0], "cancel_after_s": cancel_after_s,
          "ping_after_cancel": True, "files_after_cancel": len(after),
          "crash_sequence": crash, "restarted_worker_exit": restarted.returncode}
 
@@ -4002,6 +4258,8 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
     if not profiling.start_trace(trace_dir) or profiling.start_trace(trace_dir):
         raise AssertionError("phase 14 c: start_trace did not start exactly one trace")
     try:
+        if device == "cuda":  # what the trace loses at its start (see GraphReplays)
+            GraphReplays.lead_guards()
         waves, _sr = model.synthesize(TEXTS, **syn)
         _sync(device)
     finally:
@@ -4023,7 +4281,8 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
          "trace_counts": counted, "decode_chunks": modes}
     steps = -(-trace_frames // qmodel._chunk()) * qmodel._chunk()  # whole decode chunks
     c["decode_steps"] = steps
-    want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps}
+    want = {"prefill_gqa_attention": layers, "decode_gqa_attention": layers * steps,
+            "int8_gemv": 5 * layers * steps if device == "cuda" else 0}
     for name, n in want.items():
         if launches_c[name] != n or (device == "cuda" and counted[name] != n):
             raise AssertionError(f"phase 14 c: {name} launched {launches_c[name]} times, "
@@ -4063,12 +4322,16 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
         _free(device)
         mem0 = _mem(device)
 
+        small = SmallPrefills(qmodel)
+
         def click(tag):
             _zero(kmods)
+            small.n = 0
             t0 = time.perf_counter()
-            updates = list(cb.generate_audio(state, UI_MODEL_ID, UI_VOICE_ID, TEXTS[0],
-                                             output_dir=os.path.join(ui_dir, tag)))
-            _sync(device)
+            with small:
+                updates = list(cb.generate_audio(state, UI_MODEL_ID, UI_VOICE_ID, TEXTS[0],
+                                                 output_dir=os.path.join(ui_dir, tag)))
+                _sync(device)
             wall = time.perf_counter() - t0
             path, msg = updates[-1]
             if not path or not msg.startswith("✅") or not os.path.isfile(path):
@@ -4076,6 +4339,7 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
             return path, wall, _launches(kmods)
 
         path8, wall8, launches8 = click("int8")
+        small8 = small.n
         mem_int8 = _mem(device)
         with open(os.environ[cfgmod.HISTORY_ENV]) as f:
             history = json.load(f)
@@ -4102,13 +4366,17 @@ def run_host_layers_path(qmodel, kmods, build_dir: str, smi: str, src: str,
         state.invalidate_tts()
         _free(device)
         mem_end = _mem(device)
+        steps = launches8["decode_gqa_attention"] // layers
+        # int8: one prefill of TEXTS[0] (in the GEMV if it has at most 64 rows)
+        gemv8 = 5 * layers * (steps + small8) if device == "cuda" else 0
         if launches4["int4_matmul"] == 0 or launches8["int4_matmul"] != 0 \
+                or launches8["int8_gemv"] != gemv8 or launches4["int8_gemv"] != 0 \
                 or launches4["decode_gqa_attention"] != launches8["decode_gqa_attention"] \
                 or launches4["prefill_gqa_attention"] != launches8["prefill_gqa_attention"]:
-            raise AssertionError(f"phase 14 d: launches int8 {launches8}, int4 {launches4}")
+            raise AssertionError(f"phase 14 d: launches int8 {launches8}, int4 {launches4}; "
+                                 f"int8 GEMV expected {gemv8}")
         w8, _ = audio_io.load_wav(path8)
         w4, _ = audio_io.load_wav(path4)
-        steps = launches8["decode_gqa_attention"] // layers
         for tag, w in (("int8", w8), ("int4", w4)):
             if not 0 < w.shape[0] <= (steps + 1) * mcfg.codec.hop or not np.isfinite(w).all():
                 raise AssertionError(f"phase 14 d {tag}: {w.shape[0]} samples for {steps} steps")
@@ -4263,11 +4531,12 @@ def main(argv=None) -> int:
     from rho_tts_tpu_torch.ops.cuda import attention as attn
     from rho_tts_tpu_torch.ops.cuda import decode_attention as dec
     from rho_tts_tpu_torch.ops.cuda import int4_matmul as i4
+    from rho_tts_tpu_torch.ops.cuda import int8_gemv as g8
     from rho_tts_tpu_torch.ops.cuda import moe_experts as moe
     from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as w8
 
     kmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec,
-             "w8a8_matmul": w8, "int4_matmul": i4}
+             "w8a8_matmul": w8, "int4_matmul": i4, "int8_gemv": g8}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -4319,6 +4588,17 @@ def main(argv=None) -> int:
         f"host {moe_kernel['host_us']:.1f} us a call")
     for case in moe_kernel["cases"]:
         log(f"  case {json.dumps(case)}")
+    gemv_kernel = check_int8_gemv(qz, g8, gen)
+    log(f"phase 2 int8_gemv: max_abs_err {gemv_kernel['max_abs_err']:.3g} "
+        f"(tol {gemv_kernel['tol']:.3g}), kernel {gemv_kernel['ms']:.4f} ms "
+        f"(chained {gemv_kernel['chain_ms']:.4f}, alone {gemv_kernel['chain_kernel_ms']:.4f}), "
+        f"plain {gemv_kernel['plain_ms']:.4f} ms, "
+        f"library {gemv_kernel['library_ms']:.4f} ms (chained "
+        f"{gemv_kernel['library_chain_ms']:.4f}), bound {gemv_kernel['bound_ms']:.5f} ms "
+        f"({gemv_kernel['bound_by']}), host {gemv_kernel['host_us']:.1f} us a call")
+    for case in gemv_kernel["cases"]:
+        log(f"  case {json.dumps(case)}")
+    kernels.append(gemv_kernel)
 
     for quantization, w8a8 in ((None, False), ("int4", False), ("int8", True)):
         ref = check_against_cpu(qmodel, quantization, w8a8)
@@ -4367,7 +4647,8 @@ def main(argv=None) -> int:
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
-             "int4_matmul": ("int4 from checkpoint", int4_path)}
+             "int4_matmul": ("int4 from checkpoint", int4_path),
+             "int8_gemv": ("int8", main_path)}
     for k in kernels:
         path_name, path = paths[k["name"]]
         k["launches"] = path["launches"][k["name"]]

@@ -24,9 +24,18 @@ by its reciprocal on CUDA, which may round differently.
   ``RHO_TTS_TPU_W8A8_PREFILL=1`` (read at call time) quantizes the
   activations per row to int8 and goes to ``ops.cuda.w8a8_matmul``; decode
   (one token) stays weight-only whatever the flag says;
-* other ``{"q","s"}`` leaves compute ``x @ q.to(x.dtype)``, then ``* s`` in
-  f32, then a cast back (eager PyTorch materialises the converted weight
-  on every call; XLA fuses the convert into the dot);
+* ``{"q","s"}`` with a CUDA bf16 ``x`` of at most ``int8_gemv.MAX_ROWS``
+  rows in all (the decode step), whose ``reduce`` spans at most one rank,
+  goes to ``ops.cuda.int8_gemv``: the weight read once in its stored
+  layout, converted in registers, one f32 sum, the scale applied and one
+  rounding, in one launch;
+* other ``{"q","s"}`` leaves (the prefill's many rows, f32 activations,
+  CPU tensors, row-parallel matmuls over several ranks, which sum before
+  they scale) take the dequant route: ``x @ q.to(x.dtype)``, then ``* s``
+  in f32, then a cast back. Eager PyTorch materialises the converted
+  weight on every call (XLA fuses the convert into the dot). ``dequant_calls``
+  counts its calls, beside ``int8_gemv.launches``, as the kernels count:
+  not those recorded into a CUDA graph under capture;
 * dense weights are a plain ``x @ w``.
 
 Under tensor parallelism the row-parallel ``wo`` / ``w_down`` matmuls pass
@@ -49,6 +58,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.cuda import int8_gemv as _gemv
 from ..ops.cuda.int4_matmul import int4_matmul
 from ..ops.cuda.w8a8_matmul import w8a8_matmul
 from ..parallel.collectives import all_reduce_max, all_reduce_sum
@@ -57,6 +67,9 @@ from ..utils import profiling
 
 QUANT_KEYS = ("wqkv", "wo", "w_gate", "w_up", "w_down")
 BITS_MAX = 7  # symmetric int4: values in [-7, 7]
+
+#: int8 matmuls that took the dequant route (the weight converted in memory)
+dequant_calls = 0
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -130,19 +143,32 @@ def _w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return all_reduce_sum(y, reduce).reshape(*lead, n)
 
 
+def _takes_gemv(x: torch.Tensor, reduce: Optional[Axis]) -> bool:
+    """An int8 matmul for the GEMV kernel: CUDA bf16 ``x`` of at most
+    ``MAX_ROWS`` rows in all, and no sum over several ranks."""
+    return (x.is_cuda and x.dtype == torch.bfloat16
+            and 0 < x.numel() <= _gemv.MAX_ROWS * x.shape[-1]
+            and (reduce is None or reduce.size <= 1))
+
+
 def matmul(x: torch.Tensor, w, reduce: Optional[Axis] = None) -> torch.Tensor:
     """x @ w for dense or quantized ({"q","s"} int8 / {"q4","s"} int4) weights.
 
     ``reduce``: the axis over which ``x`` and ``w`` hold K shards (a
     row-parallel matmul); the partial products are summed over it.
     """
+    global dequant_calls
     if isinstance(w, dict):
         if "q4" in w:
             return all_reduce_sum(int4_matmul(x, w["q4"], w["s"]), reduce)
         if x.dim() >= 2 and x.shape[-2] > 1 and _w8a8_prefill_enabled():
             with profiling.region("quant/w8a8_matmul"):
                 return _w8a8_matmul(x, w["q"], w["s"], reduce)
+        if _takes_gemv(x, reduce):
+            return _gemv.int8_gemv(x.contiguous(), w["q"], w["s"])
         with profiling.region("quant/int8_matmul"):
+            if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+                dequant_calls += 1
             y = all_reduce_sum(x @ w["q"].to(x.dtype), reduce)
             return (y.float() * w["s"]).to(x.dtype)
     return all_reduce_sum(x @ w, reduce)

@@ -178,4 +178,5 @@ def test_kernel_library_name_tracks_source(tmp_path):
     src.write_text("// two")
     assert _build._library_path(src) != first
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
-        "attention", "decode_attention", "w8a8_matmul", "int4_matmul", "moe_experts"}
+        "attention", "decode_attention", "w8a8_matmul", "int4_matmul", "moe_experts",
+        "int8_gemv"}
