@@ -24,6 +24,7 @@ rank 8 on ``wqkv`` / ``wo``) after two warm-up steps. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -75,10 +76,12 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     attr = "_decode_chunk" if args.stage == "decode" else "_prefill"
     stage_fn = getattr(qmodel, attr)
+    signature = inspect.signature(stage_fn)
     runs = []
 
     def profiled(*fargs, **kwargs):
-        if args.stage == "decode" and fargs[5] + STEPS < fargs[2].shape[2]:  # slot0, cache_k
+        bound = signature.bind(*fargs, **kwargs).arguments
+        if args.stage == "decode" and bound["slot0"] + STEPS < bound["key_valid"].shape[1]:
             return stage_fn(*fargs, **kwargs)  # not the last chunk
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:

@@ -11,8 +11,11 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
 * Decode runs in chunks of ``_chunk()`` steps; JAX's ``lax.scan`` becomes a
   loop of one step function (:func:`_decode_step`), which runs the talker
   (decode attention kernel), seeded top-k Gumbel sampling and the residual
-  code predictor on device-resident state alone. On a CUDA device the step
-  is captured once per key as a CUDA graph and replayed (:class:`_StepGraph`):
+  code predictor on device-resident state alone. A call's decode is one
+  :class:`_Decode` (:meth:`QwenTTSModel._decoding`), which owns its buffers
+  and runs the prefill, frame 0 and the chunk loop for both
+  ``generate_codes`` and ``stream_chunks``. On a CUDA device the step is
+  captured once per key as a CUDA graph and replayed (:class:`_StepGraph`):
   one graph launch a step in place of some two thousand kernel launches.
   On the CPU and under tensor parallelism over several ranks it runs
   eagerly. The host checks cancellation and the lagged all-done flag
@@ -61,11 +64,12 @@ the decode layout. The vocoder runs the whole batch on every rank.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import math
 import os
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -172,8 +176,9 @@ def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_
     ``tp``: the mesh axis the weights are sharded over; ``sp_mesh``: a
     sequence-parallel prefill (``transformer.stack_forward``);
     ``conv_state``: a hybrid talker's short-convolution state, zeroed, which
-    the prefill leaves holding the prompt's last positions. Returns
-    ``(logits (B, V) f32, cache_k, cache_v, key_valid)``.
+    the prefill leaves holding the prompt's last positions. ``key_valid``,
+    zeroed, is set in place to the prompt's slots. Returns ``(logits (B, V)
+    f32, cache_k, cache_v, key_valid)``, the caller's tensors.
     """
     p = ids_slotted.shape[1]
     embeds = prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
@@ -183,7 +188,6 @@ def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_
         kv_caches=(cache_k, cache_v), cache_len=0, attn_mask=attn_mask,
         key_valid=key_valid, fused_prefill=True, sp_mesh=sp_mesh, tp=tp, conv_state=conv_state,
     )
-    key_valid = key_valid.clone()
     key_valid[:, :p] = attn_mask
     logits = h[:, -1].float() @ params["lm_head"].float()
     return logits, ck, cv, key_valid
@@ -344,56 +348,43 @@ def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepSta
         st.t.add_(1)
 
 
-def _decode_chunk(params, cfg, cache_k, cache_v, key_valid, slot0: int, rope_base,
-                  last_codes, done, seeds, temperature, step_base: int, min_frames: int,
-                  steps: int, top_k: int, tp=None, graph=None, conv_state=None):
-    """``steps`` AR decode steps from cache slot ``slot0``.
+class _Chunk(NamedTuple):
+    """A decode chunk's result, copies the next chunk does not overwrite:
+    ``codes`` ``(B, steps, nq)`` and ``dones`` ``(B, steps)``, what each step
+    emitted; ``last_codes`` ``(B, nq)`` and ``done`` ``(B,)``, the last frame;
+    ``touched`` ``(steps, expert layers)`` int32, the distinct experts of each
+    step's expert layers (None without experts); ``mode``, how the steps ran:
+    ``"capture"``, ``"replay"`` or ``"eager"`` (:meth:`_Decode.run`)."""
 
-    The JAX scan as a loop of :func:`_decode_step`: caches and ``key_valid``
-    are updated in place; ``tp`` as :func:`_prefill`. ``graph``, the
-    model's :class:`_StepGraph` for this key, replays the step as a CUDA
-    graph (captured by its first chunk, :meth:`_StepGraph.run`) over its own
-    buffers, the inputs copied in first; without it the step runs eagerly.
-    ``conv_state``: a hybrid talker's short-convolution state, rolled in
-    place (the graph's own, or copied into it). Returns ``(codes (B, steps,
-    nq), done (B, steps), cache_k, cache_v, key_valid, last_codes, done,
-    touched, mode)``, none of the tensors the graph's state, which the next
-    chunk overwrites; ``touched`` ``(steps, expert layers)`` int32 counts the
-    distinct experts of each step's expert layers (None without experts);
-    ``mode`` is how the steps ran: ``"capture"``, ``"replay"`` or ``"eager"``.
+    codes: torch.Tensor
+    dones: torch.Tensor
+    last_codes: torch.Tensor
+    done: torch.Tensor
+    touched: Optional[torch.Tensor]
+    mode: str
+
+
+def _decode_chunk(dec: "_Decode", key_valid, slot0: int, rope_base, last_codes, done, seeds,
+                  temperature, step_base: int, min_frames: int, steps: int) -> _Chunk:
+    """``steps`` AR decode steps of the call ``dec`` from cache slot ``slot0``.
+
+    The JAX scan as a loop of :func:`_decode_step` (:meth:`_Decode.run`):
+    the call's caches, ``key_valid`` and short-convolution state are updated
+    in place. ``key_valid`` is ``dec.key_valid`` as it stands before the
+    chunk, a parameter of its own because the benchmark's traced chunk binds
+    it and ``steps`` by name (ROADMAP B8).
     """
     with profiling.region("qwen/chunk_prologue"):
-        b, nq = last_codes.shape
         # Every step's sampler noise in one batched pass: it depends only on
         # (seed, frame), both known before the chunk runs.
         frames = step_base + torch.arange(steps, dtype=torch.int64, device=seeds.device)
-        noise = _gumbel_noise(seeds, frames[:, None], top_k)  # (steps, B, top_k)
-        if graph is None:
-            st = _StepState(b, nq, steps, top_k, seeds.device, cfg.talker.moe_layers,
-                            cfg.talker.n_experts)
-            lm_head = params["lm_head"].float()  # f32 logits over the bf16 head, as JAX's dot
-        else:
-            st, lm_head = graph.state, graph.lm_head
-            lm_head.copy_(params["lm_head"])
-            cache_k, cache_v, key_valid, conv_state = graph.adopt(cache_k, cache_v, key_valid,
-                                                                  conv_state)
-        st.load(slot0, rope_base, last_codes, done, noise, frames < min_frames, temperature)
-
-    def step():
-        _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st, top_k, tp,
-                     conv_state)
-
-    mode = None if graph is None else graph.run(step, steps, params)
-    if mode is None:
-        mode = "eager"
-        for _ in range(steps):
-            with profiling.region("qwen/step"):
-                step()
-    out = (st.codes, st.dones, st.last_codes, st.done, st.touched)
-    if graph is not None:  # the graph's state, which the next chunk overwrites
-        out = tuple(None if x is None else x.clone() for x in out)
-    codes, dones, last_codes, done, touched = out
-    return codes, dones, cache_k, cache_v, key_valid, last_codes, done, touched, mode
+        noise = _gumbel_noise(seeds, frames[:, None], dec.top_k)  # (steps, B, top_k)
+        dec.state.load(slot0, rope_base, last_codes, done, noise, frames < min_frames,
+                       temperature)
+    mode = dec.run(steps)
+    st = dec.state
+    return _Chunk(*(None if x is None else x.clone()
+                    for x in (st.codes, st.dones, st.last_codes, st.done, st.touched)), mode)
 
 
 def _attach_touched(chunks) -> None:
@@ -452,14 +443,15 @@ class _StepGraph:
     """One key's decode step as a CUDA graph, and every buffer it reads and writes.
 
     The key is (rows, cache length, top_k, KV dtype, chunk steps) on one
-    model, so the weights and the quantization are fixed. The KV caches and
-    ``key_valid`` are views at the start of the model's arena
-    (:class:`_StepGraphs`), zeroed for each call (:meth:`fresh`); the
-    chunk's inputs go into ``state`` and the model's f32 ``lm_head`` before
-    the replays. The graph is captured and replayed on its device's one
-    decode stream (:func:`_decode_stream`), so graphs never run at the same
-    time and share the decode attention kernel's merge workspace, of which
-    the graph holds the one it captured.
+    model, so the weights and the quantization are fixed. The KV caches,
+    ``key_valid`` and a hybrid talker's short-convolution state are views at
+    the start of the model's arena (:class:`_StepGraphs`), which the call
+    holding them zeroes (:class:`_Decode`); the chunk's inputs go into
+    ``state`` and the model's f32 ``lm_head`` before the replays. The graph
+    is captured and replayed on its device's one decode stream
+    (:func:`_decode_stream`, :meth:`_Decode.run`), so graphs never run at
+    the same time and share the decode attention kernel's merge workspace,
+    of which the graph holds the one it captured.
     """
 
     def __init__(self, arena: torch.Tensor, cfg_local, b: int, s: int, kv_dtype, nq: int,
@@ -483,55 +475,7 @@ class _StepGraph:
         self.leaves: List[torch.Tensor] = []  # the weights the graph was captured on
         self.workspace: tuple = ()  # the decode attention workspace the graph captured
 
-    def fresh(self):
-        """The key's caches and ``key_valid``, zeroed (as new ones would be)."""
-        self.cache_k.zero_()
-        self.cache_v.zero_()
-        self.key_valid.zero_()
-        if self.conv_state is not None:
-            self.conv_state.zero_()
-        return self.cache_k, self.cache_v, self.key_valid
-
-    def adopt(self, cache_k, cache_v, key_valid, conv_state=None):
-        """Copy caches other than the key's own into them (the prefill's
-        ``key_valid`` is a new tensor); returns the key's own."""
-        for own, given in ((self.cache_k, cache_k), (self.cache_v, cache_v),
-                           (self.key_valid, key_valid), (self.conv_state, conv_state)):
-            if given is not own:
-                own.copy_(given)
-        return self.cache_k, self.cache_v, self.key_valid, self.conv_state
-
-    def run(self, step, steps: int, params) -> Optional[str]:
-        """Run ``step`` ``steps`` times as the graph: replay it (``"replay"``),
-        or, where there is none for these weights, capture it first
-        (``"capture"``). None where no graph may be captured now
-        (:func:`_may_capture`): the caller runs the steps eagerly."""
-        global graph_captures, graph_replays
-        leaves = _step_leaves(params)
-        if self.graph is not None and any(a is not b for a, b in zip(leaves, self.leaves)):
-            self.graph = None  # the weights were replaced: their addresses are stale
-        if self.graph is None and not _may_capture():
-            return None
-        mode = "replay"
-        todo = steps
-        dev = self.cache_k.device
-        stream = _decode_stream(dev)
-        with torch.cuda.device(dev):
-            caller = torch.cuda.current_stream()
-            stream.wait_stream(caller)
-            with torch.cuda.stream(stream):
-                if self.graph is None:
-                    self._capture(step, leaves, stream)
-                    graph_captures += 1
-                    mode, todo = "capture", steps - 1  # the capture's warm-up ran the first step
-                for _ in range(todo):
-                    with profiling.region("qwen/step"):
-                        self.graph.replay()
-            caller.wait_stream(stream)
-        graph_replays += todo
-        return mode
-
-    def _capture(self, step, leaves, stream) -> None:
+    def capture(self, step, leaves, stream) -> None:
         """Run ``step`` once eagerly on ``stream``, so the kernels' per-stream
         workspaces and cuBLAS's exist before the capture records their
         addresses, then capture one step (which runs nothing)."""
@@ -541,13 +485,6 @@ class _StepGraph:
             step()
         self.workspace = decode_attention_kernel.workspace(self.cache_k.device, stream)
         self.graph, self.leaves = graph, leaves
-
-
-def _may_capture() -> bool:
-    """No profiler records (a capture would put its synchronisation and
-    set-up into the traced stretch) and no graph is being captured around
-    the call."""
-    return not profiling.profiler_active() and not torch.cuda.is_current_stream_capturing()
 
 
 _decode_streams: Dict[torch.device, torch.cuda.Stream] = {}
@@ -563,13 +500,14 @@ def _decode_stream(device: torch.device) -> "torch.cuda.Stream":
 class _StepGraphs:
     """A model's decode-step graphs, by key, and the buffers they share.
 
-    One call holds the store at a time (:meth:`acquire` to :meth:`release`);
-    another call meanwhile gets no graph and decodes eagerly over new
-    buffers. Every key's KV caches and ``key_valid`` lie at the start of one
-    byte arena, as large as the largest key's need: the model keeps the
-    caches of one call, whatever mix of lengths came before. An arena
-    outgrown is freed with the graphs, which hold its addresses. At most
-    :data:`GRAPH_KEYS` graphs are kept; the f32 ``lm_head`` is one for all.
+    One call holds the store at a time (:meth:`acquire` to :meth:`release`,
+    :meth:`QwenTTSModel._decoding`); another call meanwhile gets no graph
+    and decodes eagerly over new buffers. Every key's buffers lie at the
+    start of one byte arena, as large as the largest key's need: the model
+    keeps the buffers of one call, whatever mix of lengths came before. An
+    arena outgrown is freed with the graphs, which hold its addresses. At
+    most :data:`GRAPH_KEYS` graphs are kept; the f32 ``lm_head`` is one for
+    all.
     """
 
     def __init__(self):
@@ -581,45 +519,174 @@ class _StepGraphs:
 
     def acquire(self, cfg_local, b: int, s: int, kv_dtype, nq: int, steps: int, top_k: int,
                 lm_head: torch.Tensor) -> Optional[_StepGraph]:
-        """The key's graph, made if new, with the store held for the caller;
-        None while another call holds it."""
+        """The key's graph, made if new, with the store held for the caller
+        until :meth:`release`; None while another call holds it."""
+        key, dev = (b, s, top_k, kv_dtype, steps), lm_head.device
         with self._lock:
             if self._held:
                 return None
+            graph = self._graphs.get(key)
+            if graph is None:
+                need = _arena_layout(cfg_local, b, s, kv_dtype)[1][-1]
+                outgrown = self._arena is None or self._arena.numel() < need
+                if self._graphs and (outgrown or len(self._graphs) >= GRAPH_KEYS):
+                    if dev.type == "cuda":  # no replay of a graph dropped here still runs
+                        _decode_stream(dev).synchronize()
+                if outgrown:
+                    self._graphs.clear()
+                    self._arena = None  # freed before the larger one is made
+                    with torch.inference_mode(False):
+                        self._arena = torch.empty(need, dtype=torch.uint8, device=dev)
+                while len(self._graphs) >= GRAPH_KEYS:
+                    self._graphs.popitem(last=False)
+                if self._lm_head is None:
+                    with torch.inference_mode(False):
+                        self._lm_head = torch.empty(lm_head.shape, dtype=torch.float32,
+                                                    device=dev)
+                graph = self._graphs[key] = _StepGraph(self._arena, cfg_local, b, s, kv_dtype,
+                                                       nq, steps, top_k, self._lm_head)
+            self._graphs.move_to_end(key)
             self._held = True
-        try:
-            return self._graph((b, s, top_k, kv_dtype, steps), cfg_local, nq, lm_head)
-        except BaseException:
-            self.release()
-            raise
-
-    def _graph(self, key: tuple, cfg_local, nq: int, lm_head: torch.Tensor) -> _StepGraph:
-        b, s, top_k, kv_dtype, steps = key
-        dev = lm_head.device
-        graph = self._graphs.get(key)
-        if graph is None:
-            need = _arena_layout(cfg_local, b, s, kv_dtype)[1][-1]
-            outgrown = self._arena is None or self._arena.numel() < need
-            if self._graphs and (outgrown or len(self._graphs) >= GRAPH_KEYS):
-                if dev.type == "cuda":  # no replay of a graph dropped here still runs
-                    _decode_stream(dev).synchronize()
-            if outgrown:
-                self._graphs.clear()
-                self._arena = None  # freed before the larger one is made
-                with torch.inference_mode(False):
-                    self._arena = torch.empty(need, dtype=torch.uint8, device=dev)
-            while len(self._graphs) >= GRAPH_KEYS:
-                self._graphs.popitem(last=False)
-            if self._lm_head is None:
-                with torch.inference_mode(False):
-                    self._lm_head = torch.empty(lm_head.shape, dtype=torch.float32, device=dev)
-            graph = self._graphs[key] = _StepGraph(self._arena, cfg_local, b, s, kv_dtype, nq,
-                                                   steps, top_k, self._lm_head)
-        self._graphs.move_to_end(key)
-        return graph
+            return graph
 
     def release(self) -> None:
         self._held = False
+
+
+class _Decode:
+    """One call's decode: every buffer its steps read and write, and how they run.
+
+    Made by :meth:`QwenTTSModel._decoding` for ``b`` local rows over ``s``
+    cache slots. It holds the KV caches, ``key_valid`` and a hybrid talker's
+    short-convolution state, zeroed; the steps' :class:`_StepState`; the f32
+    ``lm_head``, copied once a call (state and head only with a ``top_k``);
+    and ``graph``, the model's :class:`_StepGraph` for the key, whose
+    buffers these then are, or None: new buffers, and the steps run eagerly.
+    :meth:`prefill` and :meth:`chunks` fill them; :meth:`run` runs a
+    chunk's steps.
+    """
+
+    def __init__(self, model: "QwenTTSModel", b: int, s: int, top_k: Optional[int], steps: int,
+                 graph: Optional[_StepGraph]):
+        cfg, dev = model.config, model.device
+        self.params, self.cfg, self.tp = model.params, cfg, model.tp_axis
+        self.top_k, self.steps, self.graph = top_k, steps, graph
+        if graph is None:
+            self.cache_k, self.cache_v = model._shard_kv(b, s)
+            self.key_valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+            self.conv_state = tfm.make_conv_state(cfg.talker, b, dev)
+            self.state = None if top_k is None else _StepState(
+                b, cfg.codec.n_codebooks, steps, top_k, dev, cfg.talker.moe_layers,
+                cfg.talker.n_experts)
+            # f32 logits over the bf16 head, as JAX's dot
+            self.lm_head = None if top_k is None else self.params["lm_head"].float()
+        else:
+            self.cache_k, self.cache_v = graph.cache_k, graph.cache_v
+            self.key_valid, self.conv_state = graph.key_valid, graph.conv_state
+            for buf in (self.cache_k, self.cache_v, self.key_valid, self.conv_state):
+                if buf is not None:
+                    buf.zero_()
+            self.state, self.lm_head = graph.state, graph.lm_head.copy_(self.params["lm_head"])
+
+    def prefill(self, a: Dict[str, torch.Tensor], sp_mesh=None) -> torch.Tensor:
+        """Prefill the uploaded prompt arrays ``a`` into the call's buffers
+        (:func:`_prefill`); returns the last position's logits ``(B, V)`` f32."""
+        with profiling.stage("qwen/prefill"):
+            return _prefill(self.params, self.cfg, a["ids_slotted"], a["text_mask"],
+                            a["codes_slotted"], a["code_mask"], a["spk_ids"], a["spk_mask"],
+                            a["rope_pos"], a["attn_mask"], self.cache_k, self.cache_v,
+                            self.key_valid, tp=self.tp, sp_mesh=sp_mesh,
+                            conv_state=self.conv_state)[0]
+
+    def chunks(self, a: Dict[str, torch.Tensor], seeds, temperature, min_frames: int,
+               cancel_check=None, sp_mesh=None):
+        """The prefill, frame 0 and the decode chunks of the call.
+
+        Prefills ``a`` (:meth:`prefill`), samples frame 0 from its logits
+        with each row's ``(seed, 0)`` noise (EOS floored under
+        ``min_frames``) and yields it as ``(codes (B, nq), done (B,))``;
+        then yields each chunk as ``(its qwen/decode_chunk span's attrs,
+        _Chunk)`` until the cache is full, ``cancel_check`` run before each.
+        The caller stops it where it has what it needs.
+        """
+        cfg, p = self.cfg, a["attn_mask"].shape[1]
+        logits = self.prefill(a, sp_mesh)
+        if min_frames > 0:
+            logits[:, cfg.audio_eos] = -1e30
+        b, dev = logits.shape[0], logits.device
+        tok0 = _sample_token_seeded(logits, seeds, torch.zeros((b,), dtype=torch.int64, device=dev),
+                                    temperature, self.top_k)
+        # Frame 0's residual codes are zeros, as in the JAX package.
+        last_codes = torch.cat(
+            [tok0[:, None], torch.zeros((b, cfg.codec.n_codebooks - 1), dtype=torch.int64,
+                                        device=dev)], dim=-1,
+        )
+        done = tok0 == cfg.audio_eos
+        yield last_codes, done
+        rope_base = a["attn_mask"].sum(dim=1)  # each row's prompt length
+        for slot0 in range(p, self.key_valid.shape[1], self.steps):
+            if cancel_check is not None:
+                cancel_check()
+            with profiling.stage("qwen/decode_chunk", steps=self.steps) as attrs:
+                out = _decode_chunk(self, self.key_valid, slot0, rope_base + (slot0 - p),
+                                    last_codes, done, seeds, temperature, slot0 - p + 1,
+                                    min_frames, self.steps)
+                attrs["graph"] = out.mode
+            last_codes, done = out.last_codes, out.done
+            yield attrs, out
+
+    def run(self, steps: int) -> str:
+        """Run ``steps`` decode steps over the call's buffers and ``state``
+        and say how: ``"replay"`` the key's graph; ``"capture"`` it first
+        where there is none for these weights (its warm-up runs the first
+        step); or ``"eager"``, step by step, where the call has no graph or
+        none may be captured now (a profiler records, which a capture's
+        synchronisation and set-up would join, or a graph is being captured
+        around the call)."""
+        global graph_captures, graph_replays
+        g = self.graph
+        if g is not None:
+            leaves = _step_leaves(self.params)
+            if g.graph is not None and any(a is not b for a, b in zip(leaves, g.leaves)):
+                g.graph = None  # the weights were replaced: their addresses are stale
+            if g.graph is None and (profiling.profiler_active()
+                                    or torch.cuda.is_current_stream_capturing()):
+                g = None
+        if g is None:
+            for _ in range(steps):
+                with profiling.region("qwen/step"):
+                    self._step()
+            return "eager"
+        mode, todo = "replay", steps
+        dev = self.cache_k.device
+        stream = _decode_stream(dev)
+        with torch.cuda.device(dev):
+            caller = torch.cuda.current_stream()
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                if g.graph is None:
+                    g.capture(self._step, leaves, stream)
+                    graph_captures += 1
+                    mode, todo = "capture", steps - 1  # the capture's warm-up ran the first step
+                for _ in range(todo):
+                    with profiling.region("qwen/step"):
+                        g.graph.replay()
+            caller.wait_stream(stream)
+        graph_replays += todo
+        return mode
+
+    def _step(self) -> None:
+        _decode_step(self.params, self.cfg, self.lm_head, self.cache_k, self.cache_v,
+                     self.key_valid, self.state, self.top_k, self.tp, self.conv_state)
+
+
+def _decode_slots(max_chars: int, max_frames: Optional[int]) -> int:
+    """The cache slots a call decodes into: ``max_frames`` (by default the
+    longest text's characters + 50, within one chunk and 1500) in whole
+    chunks."""
+    if max_frames is None:
+        max_frames = int(np.clip(max_chars * 1.0 + 50, _chunk(), 1500))
+    return _round_up(max_frames, _chunk())
 
 
 def _vocode(params, cfg, codes):
@@ -847,34 +914,29 @@ class QwenTTSModel(nn.Module):
         collectives are not captured)."""
         return self.device.type == "cuda" and (self.tp_axis is None or self.tp_axis.size == 1)
 
-    def _decode_buffers(self, b: int, s: int, top_k: Optional[int] = None):
-        """``(cache_k, cache_v, key_valid, graph)`` for a decode of ``b`` local
-        rows over ``s`` cache slots, the buffers zeroed.
+    @contextlib.contextmanager
+    def _decoding(self, b: int, s: int, top_k: Optional[int] = None):
+        """The call's :class:`_Decode` for ``b`` local rows over ``s`` cache
+        slots, its buffers zeroed.
 
         Where the step may be captured (:meth:`_graphable`) they are the
         buffers of the model's :class:`_StepGraph` for the key (rows, cache
-        length, ``top_k``, KV dtype, chunk steps), the model's graphs held by
-        the call until ``self._step_graphs.release()``. Elsewhere, without
-        ``top_k``, or while another call holds the graphs, they are new and
-        ``graph`` is None: the eager loop.
+        length, ``top_k``, KV dtype, chunk steps), the model's graphs held
+        until the block is left. Elsewhere, without ``top_k`` (a prefill
+        alone), or while another call holds the graphs, they are new and the
+        steps run eagerly.
         """
+        steps, graph = _chunk(), None
         if top_k is not None and self._graphable():
             graph = self._step_graphs.acquire(
                 tfm.local_config(self.config.talker, self.tp_axis), b, s,
-                tfm.kv_cache_dtype(b, s), self.config.codec.n_codebooks, _chunk(), top_k,
+                tfm.kv_cache_dtype(b, s), self.config.codec.n_codebooks, steps, top_k,
                 self.params["lm_head"])
+        try:
+            yield _Decode(self, b, s, top_k, steps, graph)
+        finally:
             if graph is not None:
-                return (*graph.fresh(), graph)
-        cache_k, cache_v = self._shard_kv(b, s)
-        return cache_k, cache_v, torch.zeros((b, s), dtype=torch.bool, device=self.device), None
-
-    def _conv_buffer(self, b: int, graph: Optional[_StepGraph]) -> Optional[torch.Tensor]:
-        """A hybrid talker's short-convolution state for ``b`` rows, zeroed:
-        the graph's own (:meth:`_decode_buffers` zeroed it), or new; None for
-        a talker without short convolutions."""
-        if graph is not None:
-            return graph.conv_state
-        return tfm.make_conv_state(self.config.talker, b, self.device)
+                self._step_graphs.release()
 
     def _all_done(self, done: torch.Tensor) -> torch.Tensor:
         """The batch's all-done flag, over every data rank's rows."""
@@ -1034,9 +1096,9 @@ class QwenTTSModel(nn.Module):
 
         with profiling.stage("qwen/prompt_build"):
             if prebuilt_prompt is not None:
-                arrays, lens, p = prebuilt_prompt
+                arrays, _, p = prebuilt_prompt
             else:
-                arrays, lens, p = self._build_prompt_arrays(
+                arrays, _, p = self._build_prompt_arrays(
                     texts, speaker, language, ref_audio, ref_text
                 )
         # Data parallelism: pad the batch to a multiple of the data axis
@@ -1046,93 +1108,51 @@ class QwenTTSModel(nn.Module):
         if pad_rows:
             arrays = {k: np.concatenate([v, np.repeat(v[:1], pad_rows, axis=0)])
                       for k, v in arrays.items()}
-            lens = lens + [lens[0]] * pad_rows
         a = {k: torch.from_numpy(np.ascontiguousarray(self._shard(v))).to(dev)
              for k, v in arrays.items()}
         b = a["attn_mask"].shape[0]
 
-        if max_frames is None:
-            max_chars = max(len(t) for t in texts)
-            max_frames = int(np.clip(max_chars * 1.0 + 50, _chunk(), 1500))
-        n_chunks = _round_up(max_frames, _chunk()) // _chunk()
-        s = p + n_chunks * _chunk()
+        if seeds is None:
+            seeds_b = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, n_real)
+        else:
+            if len(seeds) != n_real:
+                raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
+            seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
+                torch.as_tensor(np.asarray(seeds, np.int64))
+        seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
+        if pad_rows:  # one seed per real row: padding never shifts a real row
+            seeds_b = torch.cat([seeds_b, seeds_b[:1].expand(pad_rows)])
+        seeds_b = self._shard(seeds_b)
 
-        cache_k, cache_v, key_valid, graph = self._decode_buffers(b, s, top_k)
-        conv_state = self._conv_buffer(b, graph)
-        try:
-            with profiling.stage("qwen/prefill"):
-                logits, cache_k, cache_v, key_valid = _prefill(
-                    self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
-                    a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-                    cache_k, cache_v, key_valid, tp=self.tp_axis,
-                    sp_mesh=self.mesh if self.seq_parallel else None, conv_state=conv_state,
-                )
-
-            if seeds is None:
-                seeds_b = _derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, n_real)
-            else:
-                if len(seeds) != n_real:
-                    raise ValueError(f"seeds has {len(seeds)} entries for {n_real} texts")
-                seeds_b = seeds if isinstance(seeds, torch.Tensor) else \
-                    torch.as_tensor(np.asarray(seeds, np.int64))
-            seeds_b = seeds_b.to(device=dev, dtype=torch.int64)
-            if pad_rows:  # one seed per real row: padding never shifts a real row
-                seeds_b = torch.cat([seeds_b, seeds_b[:1].expand(pad_rows)])
-            seeds_b = self._shard(seeds_b)
-            if min_frames > 0:
-                logits[:, cfg.audio_eos] = -1e30
-            tok0 = _sample_token_seeded(
-                logits, seeds_b, torch.zeros((b,), dtype=torch.int64, device=dev), temperature,
-                top_k,
-            )
-            # Frame 0's residual codes are zeros, as in the JAX package.
-            first_codes = torch.cat(
-                [tok0[:, None], torch.zeros((b, cfg.codec.n_codebooks - 1), dtype=torch.int64,
-                                            device=dev)], dim=-1,
-            )
-            done = tok0 == cfg.audio_eos
-            rope_base = self._shard(torch.as_tensor(lens, dtype=torch.int64)).to(dev)
-
+        s = p + _decode_slots(max(len(t) for t in texts), max_frames)
+        with self._decoding(b, s, top_k) as dec:
+            chunks = dec.chunks(a, seeds_b, temperature, min_frames, cancel_check,
+                                self.mesh if self.seq_parallel else None)
+            first_codes, done = next(chunks)
             # Code/done chunks accumulate on the device; the early exit reads the
             # PREVIOUS chunk's all-done flag, so the host never waits on the chunk
             # it just enqueued (worst case one surplus chunk).
             all_codes = [first_codes[:, None, :]]
             all_done = [done[:, None]]
-            last_codes = first_codes
-            slot0 = p
             prev_flag = None
             touched = []  # (span attrs, the chunk's distinct experts) of an expert talker
-            for _ in range(n_chunks):
-                if cancel_check is not None:
-                    cancel_check()
-                with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
-                    (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                     done, chunk_touched, attrs["graph"]) = _decode_chunk(
-                        self.params, cfg, cache_k, cache_v, key_valid, slot0,
-                        rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                        slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
-                        conv_state=conv_state,
-                    )
-                if chunk_touched is not None:
-                    touched.append((attrs, chunk_touched))
-                all_codes.append(codes_chunk)
-                all_done.append(done_chunk)
-                slot0 += _chunk()
+            for attrs, out in chunks:
+                if out.touched is not None:
+                    touched.append((attrs, out.touched))
+                all_codes.append(out.codes)
+                all_done.append(out.dones)
                 if prev_flag is not None:
                     with profiling.stage("qwen/done_check"):  # the host waits for the flag
                         finished = bool(prev_flag)
                     if finished:
                         break
-                prev_flag = self._all_done(done)
+                prev_flag = self._all_done(out.done)
 
             if touched:  # fetched once, where the caller is about to wait for the codes
                 _attach_touched(touched)
             data = self._data_axis()
             return (all_gather(torch.cat(all_codes, dim=1), 0, data),
                     all_gather(torch.cat(all_done, dim=1), 0, data), n_real)
-        finally:
-            if graph is not None:
-                self._step_graphs.release()
 
     @torch.inference_mode()
     def synthesize(self, texts: Union[str, Sequence[str]], speaker: Optional[str] = None,
@@ -1213,35 +1233,6 @@ class QwenTTSModel(nn.Module):
 
     # -- Single-stream streaming --------------------------------------------
 
-    def _single_prefill(self, text, speaker, language, ref_audio, ref_text, decode_slots: int,
-                        top_k: Optional[int] = None):
-        """B=1 prompt build + prefill with ``decode_slots`` free cache slots.
-
-        Shared by the streaming and speculative single-stream paths. Returns
-        dict(logits (1, V), ck, cv, kv, p, len0, graph, conv): with ``top_k`` the
-        caches may be a decode-step graph's (:meth:`_decode_buffers`), which
-        the caller releases.
-        """
-        cfg = self.config
-        arrays, lens, p = self._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
-        s = p + int(decode_slots)
-        # one stream: the row stays on every rank
-        cache_k, cache_v, key_valid, graph = self._decode_buffers(1, s, top_k)
-        conv_state = self._conv_buffer(1, graph)
-        a = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
-        try:
-            logits, ck, cv, kv = _prefill(
-                self.params, cfg, a["ids_slotted"], a["text_mask"], a["codes_slotted"],
-                a["code_mask"], a["spk_ids"], a["spk_mask"], a["rope_pos"], a["attn_mask"],
-                cache_k, cache_v, key_valid, tp=self.tp_axis, conv_state=conv_state,
-            )
-        except BaseException:
-            if graph is not None:
-                self._step_graphs.release()
-            raise
-        return {"logits": logits, "ck": ck, "cv": cv, "kv": kv, "p": p, "len0": int(lens[0]),
-                "graph": graph, "conv": conv_state}
-
     @torch.inference_mode()
     def stream_chunks(self, text: str, speaker: Optional[str] = None, language: str = "English",
                       ref_audio: Optional[str] = None, ref_text: Optional[str] = None,
@@ -1271,36 +1262,18 @@ class QwenTTSModel(nn.Module):
         top_k = cfg.top_k if top_k is None else top_k
         if seed is None:
             seed = int(_derive_row_seeds(prng.PRNGKey(0) if rng is None else rng, 1)[0])
+        seeds = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
+        arrays, _, p = self._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
+        # one stream: the row stays on every rank
+        a = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
-        if max_frames is None:
-            max_frames = int(np.clip(len(text) * 1.0 + 50, _chunk(), 1500))
-        n_chunks = _round_up(max_frames, _chunk()) // _chunk()
-        pre = self._single_prefill(text, speaker, language, ref_audio, ref_text,
-                                   n_chunks * _chunk(), top_k)
-        graph = pre["graph"]
-        try:
-            p = pre["p"]
-            cache_k, cache_v, key_valid = pre["ck"], pre["cv"], pre["kv"]
-            logits = pre["logits"]
-            seeds_b = torch.full((1,), int(seed), dtype=torch.int64, device=dev)
-            if min_frames > 0:
-                logits[:, cfg.audio_eos] = -1e30
-            tok0 = _sample_token_seeded(logits, seeds_b,
-                                        torch.zeros((1,), dtype=torch.int64, device=dev),
-                                        temperature, top_k)
-            first_codes = torch.cat(
-                [tok0[:, None], torch.zeros((1, cfg.codec.n_codebooks - 1), dtype=torch.int64,
-                                            device=dev)], dim=-1,
-            )
-            done = tok0 == cfg.audio_eos
-            rope_base = torch.full((1,), pre["len0"], dtype=torch.int64, device=dev)
-
+        with self._decoding(1, p + _decode_slots(len(text), max_frames), top_k) as dec:
+            chunks = dec.chunks(a, seeds, temperature, min_frames, cancel_check)
+            first_codes, _ = next(chunks)
             hop = cfg.codec.hop
             codes_np = first_codes.cpu().numpy()  # (1, nq), grows per chunk
             finished = bool(codes_np[0, 0] == cfg.audio_eos)
             emitted = 0  # frames already yielded
-            last_codes = first_codes
-            slot0 = p
 
             def vocode_span(lo: int, hi: int, emit_from: int, emit_to: int):
                 """Vocode codes[lo:hi]; return samples for frames [emit_from, emit_to)."""
@@ -1311,23 +1284,10 @@ class QwenTTSModel(nn.Module):
                     wav = _vocode(self.params, cfg, torch.from_numpy(batch).to(dev))
                 return wav[0, (emit_from - lo) * hop: (emit_to - lo) * hop]
 
-            for _ in range(n_chunks):
-                if finished:
-                    break
-                if cancel_check is not None:
-                    cancel_check()
-                with profiling.stage("qwen/decode_chunk", steps=_chunk()) as attrs:
-                    (codes_chunk, done_chunk, cache_k, cache_v, key_valid, last_codes,
-                     done, touched, attrs["graph"]) = _decode_chunk(
-                        self.params, cfg, cache_k, cache_v, key_valid, slot0,
-                        rope_base + (slot0 - p), last_codes, done, seeds_b, temperature,
-                        slot0 - p + 1, min_frames, _chunk(), top_k, self.tp_axis, graph=graph,
-                        conv_state=pre["conv"],
-                    )
-                slot0 += _chunk()
-                cc, dd = codes_chunk[0].cpu().numpy(), done_chunk[0].cpu().numpy()
-                if touched is not None:  # with the chunk's codes
-                    _attach_touched([(attrs, touched)])
+            for attrs, out in (() if finished else chunks):
+                cc, dd = out.codes[0].cpu().numpy(), out.dones[0].cpu().numpy()
+                if out.touched is not None:  # with the chunk's codes
+                    _attach_touched([(attrs, out.touched)])
                 hit = np.nonzero(dd)[0]
                 if hit.size:
                     cc = cc[: int(hit[0]) + 1]
@@ -1344,11 +1304,10 @@ class QwenTTSModel(nn.Module):
                     piece = vocode_span(lo, total, emitted, safe)
                     emitted = safe
                     yield piece, self.sample_rate
+                if finished:
+                    break
 
             if emitted < codes_np.shape[0]:  # final flush (max_frames reached)
                 total = codes_np.shape[0]
                 lo = max(emitted - context_frames, 0)
                 yield vocode_span(lo, total, emitted, total), self.sample_rate
-        finally:
-            if graph is not None:
-                self._step_graphs.release()

@@ -320,8 +320,11 @@ def speculative_generate_codes(target, draft, text: str, speaker: Optional[str] 
 
 
 def _prefill_single(model, text, speaker, language, ref_audio, ref_text, decode_cap, gamma):
-    """The model's standard prefill for one text; returns the cache state."""
-    pre = model._single_prefill(text, speaker, language, ref_audio, ref_text,
-                                int(decode_cap) + gamma + 2)
-    return {"logits": pre["logits"][0], "ck": pre["ck"], "cv": pre["cv"], "kv": pre["kv"],
-            "slot0": int(pre["p"]), "pos0": int(pre["len0"])}
+    """The model's standard prefill for one text, over new caches with room
+    for the decode; returns the cache state."""
+    arrays, lens, p = model._build_prompt_arrays([text], speaker, language, ref_audio, ref_text)
+    a = {k: torch.from_numpy(v).to(model.device) for k, v in arrays.items()}
+    with model._decoding(1, p + int(decode_cap) + gamma + 2) as dec:  # no top_k: no graph
+        logits = dec.prefill(a)
+    return {"logits": logits[0], "ck": dec.cache_k, "cv": dec.cache_v, "kv": dec.key_valid,
+            "slot0": int(p), "pos0": int(lens[0])}

@@ -2,8 +2,10 @@
 
 On the CPU: the model's store of step graphs (one call holds it at a time,
 at most ``GRAPH_KEYS`` graphs kept, the least recently used dropped first,
-every key's caches in one arena that grows to the largest) and the eager
-fallback, which gets fresh buffers and no graph.
+every key's caches in one arena that grows to the largest), the call's
+decode object (``_Decode``: the held graph's buffers zeroed, or on the CPU
+fresh buffers and no graph) and the store freed by a call that raises or a
+stream closed early.
 
 On the card (``-m chip``; skipped without one): at the benchmark cells'
 shapes (1.7B int8 and 0.6B bf16, 8 rows of 120-220 characters, so a
@@ -65,8 +67,8 @@ def test_one_call_holds_the_graphs_and_the_oldest_key_goes_first(monkeypatch):
 
 def test_every_key_lies_in_one_arena_which_grows_to_the_largest(monkeypatch):
     """The caches and ``key_valid`` of each key are views at the start of
-    the model's one arena, zeroed for each call; a longer key outgrows it,
-    and the graphs over the old arena go with it."""
+    the model's one arena; a longer key outgrows it, and the graphs over the
+    old arena go with it."""
     graphs = qmodel._StepGraphs()
     a = _acquire(graphs, 2, 96)
     arena = graphs._arena
@@ -75,9 +77,6 @@ def test_every_key_lies_in_one_arena_which_grows_to_the_largest(monkeypatch):
     assert a.cache_k.shape == a.cache_v.shape == shape and a.key_valid.shape == (2, 96)
     assert a.cache_k.is_contiguous() and a.cache_v.is_contiguous()
     assert a.cache_k.untyped_storage().data_ptr() == arena.data_ptr()
-    ck, cv, kv = a.fresh()
-    ck.fill_(1), cv.fill_(1), kv.fill_(True)
-    assert not (a.fresh()[0].any() or a.cache_v.any() or a.key_valid.any())
     graphs.release()
     b = _acquire(graphs, 1, 64)  # smaller: the same arena, the first key kept
     assert graphs._arena is arena and list(graphs._graphs.values()) == [a, b]
@@ -91,10 +90,15 @@ def test_every_key_lies_in_one_arena_which_grows_to_the_largest(monkeypatch):
 
 def test_the_cpu_gets_new_zeroed_buffers_and_no_graph():
     m = QwenTTSModel(PRESETS["tiny"], device="cpu")
-    ck, cv, kv, graph = m._decode_buffers(2, 96, 8)
-    assert graph is None and not m._step_graphs._graphs and m._step_graphs._arena is None
-    assert ck.shape == cv.shape == (2, 2, 96, 2, 16) and kv.shape == (2, 96)
-    assert not ck.any() and not cv.any() and not kv.any()
+    with m._decoding(2, 96, 8) as dec:
+        assert dec.graph is None and not m._step_graphs._graphs and m._step_graphs._arena is None
+        assert dec.cache_k.shape == dec.cache_v.shape == (2, 2, 96, 2, 16)
+        assert dec.key_valid.shape == (2, 96) and dec.conv_state is None
+        assert not dec.cache_k.any() and not dec.cache_v.any() and not dec.key_valid.any()
+        assert dec.state.noise.shape == (qmodel._chunk(), 2, 8)
+        assert torch.equal(dec.lm_head, m.params["lm_head"].float())
+    with m._decoding(2, 96) as dec:  # a prefill alone: no step state, no f32 head
+        assert dec.graph is None and dec.state is None and dec.lm_head is None
 
 
 def _replay_is_the_step(monkeypatch):
@@ -107,7 +111,7 @@ def _replay_is_the_step(monkeypatch):
 
     stream = types.SimpleNamespace(wait_stream=lambda other: None)
     monkeypatch.setattr(QwenTTSModel, "_graphable", lambda self: True)
-    monkeypatch.setattr(qmodel._StepGraph, "_capture", capture)
+    monkeypatch.setattr(qmodel._StepGraph, "capture", capture)
     monkeypatch.setattr(qmodel, "_decode_stream", lambda device: stream)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
@@ -115,6 +119,70 @@ def _replay_is_the_step(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
     monkeypatch.setattr(qmodel, "graph_captures", 0)
     monkeypatch.setattr(qmodel, "graph_replays", 0)
+
+
+def test_a_call_holds_its_key_s_buffers_zeroed_and_a_second_call_goes_eager(monkeypatch):
+    """On the CPU stand-in the call's buffers are its key's views of the
+    arena, zeroed on entry whatever the last call left there, and the f32
+    head is the store's one; a call made while they are held gets new
+    buffers and no graph; leaving the block frees the store."""
+    m = QwenTTSModel(PRESETS["tiny"], device="cpu")
+    _replay_is_the_step(monkeypatch)
+    with m._decoding(2, 96, 8) as dec:
+        graph = dec.graph
+        assert graph is not None and m._step_graphs._held
+        assert dec.cache_k is graph.cache_k and dec.key_valid is graph.key_valid
+        assert dec.state is graph.state and dec.lm_head is m._step_graphs._lm_head
+        assert dec.cache_k.untyped_storage().data_ptr() == m._step_graphs._arena.data_ptr()
+        assert torch.equal(dec.lm_head, m.params["lm_head"].float())
+        dec.cache_k.fill_(1), dec.cache_v.fill_(1), dec.key_valid.fill_(True)
+        with m._decoding(2, 96, 8) as other:
+            assert other.graph is None and other.cache_k is not dec.cache_k
+    assert not m._step_graphs._held
+    with m._decoding(2, 96, 8) as dec:
+        assert dec.graph is graph
+        assert not (dec.cache_k.any() or dec.cache_v.any() or dec.key_valid.any())
+    assert not m._step_graphs._held
+
+
+def test_a_cancelled_call_and_a_closed_stream_leave_the_graphs_free(monkeypatch):
+    """A call whose ``cancel_check`` raises before its second chunk, and a
+    ``stream_chunks`` generator closed after its first piece, each leave the
+    store free: the next call of each key replays and captures nothing."""
+    from rho_tts_tpu_torch.cancellation import CancelledException
+    from rho_tts_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("RHO_TTS_TPU_DECODE_CHUNK", "8")
+    m = QwenTTSModel(PRESETS["tiny"], device="cpu")
+    _replay_is_the_step(monkeypatch)
+    texts = ["hello there", "a second, longer row"]
+    kw = dict(min_frames=30, max_frames=30, top_k=8, seeds=[4, 5])
+    stream_kw = dict(min_frames=30, max_frames=30, top_k=8, seed=6, context_frames=4)
+    m.generate_codes(texts, **kw)  # captures each key
+    assert len(list(m.stream_chunks(texts[1], **stream_kw))) >= 2
+    assert qmodel.graph_captures == 2
+
+    checks = []
+
+    def cancel():
+        checks.append(len(checks))
+        if len(checks) == 2:
+            raise CancelledException("cancelled")
+
+    with pytest.raises(CancelledException):
+        m.generate_codes(texts, cancel_check=cancel, **kw)
+    assert checks == [0, 1] and not m._step_graphs._held
+    pieces = m.stream_chunks(texts[1], **stream_kw)
+    next(pieces)
+    assert m._step_graphs._held  # the open stream holds its key
+    pieces.close()
+    assert not m._step_graphs._held
+
+    profiling.reset()
+    m.generate_codes(texts, **kw)
+    assert len(list(m.stream_chunks(texts[1], **stream_kw))) >= 2
+    modes = [s["attrs"]["graph"] for s in profiling.spans() if s["name"] == "qwen/decode_chunk"]
+    assert modes == ["replay"] * 8 and qmodel.graph_captures == 2
 
 
 @pytest.mark.parametrize("quantization", [None, "int8"], ids=["dense", "int8"])

@@ -243,7 +243,7 @@ def _replay_is_the_step(monkeypatch):
 
     stream = types.SimpleNamespace(wait_stream=lambda other: None)
     monkeypatch.setattr(QwenTTSModel, "_graphable", lambda self: True)
-    monkeypatch.setattr(qmodel._StepGraph, "_capture", capture)
+    monkeypatch.setattr(qmodel._StepGraph, "capture", capture)
     monkeypatch.setattr(qmodel, "_decode_stream", lambda device: stream)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
