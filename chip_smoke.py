@@ -17,14 +17,17 @@ Phases, each fatal on failure:
    Chatterbox shapes (head_dim 64, group 1, K = 1024 / 4096, CFG rows;
    ``chatterbox_cases`` in each kernel's entry); the routed-experts kernel
    at LFM2-8B-A1B's expert layer (see :func:`check_moe_experts`); the int8
-   GEMV at the 1.7B's decode shapes (see :func:`check_int8_gemv`);
+   GEMV at the 1.7B's decode shapes (see :func:`check_int8_gemv`); the
+   talker block's glue, ``add_rms_norm``, ``rope_qk`` and ``silu_mul``, at
+   the three benchmark talkers' and Chatterbox's widths for 8 and 2,048
+   rows (see :func:`check_talker_glue`);
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
 4. main path: Qwen3-TTS 1.7B, weight-only int8, batch 5 through
    ``QwenTTSModel.synthesize`` (prompt -> prefill -> 4 chunks of 64 decode
    steps -> vocoder), once to warm up and once timed, with each kernel's
-   launch count read around the timed run;
+   launch count read around the timed run, the talker's glue kernels too;
 5. int4 path: 1.7B with int4 weights, saved as a native checkpoint and
    served by ``QwenTTSModel.from_pretrained(dir)``, the same batch and
    frames; the codes must equal those of the model that was saved;
@@ -107,8 +110,9 @@ Phases, each fatal on failure:
     (short convolutions, attention, routed experts) through ``synthesize``
     (the benchmark cell's 8 rows) and ``stream_chunks``, each once to warm
     up and once with exact launch counts, every chunk replayed. Its kernels
-    are the two attention kernels and ``moe_experts``, whose entry takes its
-    ``launches`` from here.
+    are the two attention kernels, ``moe_experts``, whose entry takes its
+    ``launches`` from here, and the talker's glue kernels (their entries'
+    ``launches_hybrid``).
 
 From phase 4 on, a kernel's launch count includes the launches that the
 replays of a CUDA graph (the Qwen decode step) run, read from traces of
@@ -735,6 +739,107 @@ def check_int8_gemv(qz, g8, gen) -> dict:
     }
 
 
+def _ulps(a, b):
+    """|a - b| in units of the last place of bf16 at the larger of the two."""
+    a, b = a.float(), b.float()
+    exp = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
+    return (a - b).abs() / torch.ldexp(torch.ones_like(a), exp - 8)
+
+
+#: (hidden, q heads, kv heads, head dim, ffn) of the talkers the glue serves
+GLUE_TALKERS = {"1.7B": (2048, 16, 8, 128, 6144), "0.6B": (1024, 16, 8, 128, 3072),
+                "lfm2": (2048, 32, 8, 64, 7168), "chatterbox": (1024, 16, 16, 64, 4096)}
+
+
+def check_talker_glue(arn, rq, sm, gen) -> list:
+    """The talker block's glue kernels at each talker of ``GLUE_TALKERS``
+    for 8 rows (a decode step) and 2,048 (a long prefill): ``add_rms_norm``
+    over the hidden stream with a residual and over q's heads read through
+    the QKV output's strides (QK-norm, no residual), ``rope_qk`` over the
+    QKV views, ``silu_mul`` at the ffn width. Every case launched twice and
+    bit-identical; ``rope_qk`` and ``silu_mul`` bit-equal to their plain
+    versions, ``add_rms_norm``'s residual bit-equal and its norm within one
+    bf16 unit in the last place (the order of the mean's sum differs),
+    with the share of values that differ. The 1.7B's cases are timed at
+    both sizes against the plain chain (flushed launches) with their byte
+    bound; the 8-row time is the kernel's ``ms``."""
+    from rho_tts_tpu_torch.models import transformer
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    out = {"add_rms_norm": [], "rope_qk": [], "silu_mul": []}
+    for talker, (hidden, hq, hk, d, ffn) in GLUE_TALKERS.items():
+        for rows in (8, 2048):
+            b, t = (rows, 1) if rows == 8 else (1, rows)
+            x, delta = rand(b, t, hidden), rand(b, t, hidden, scale=0.5)
+            w = 1.0 + 0.1 * torch.randn(hidden, generator=gen, device="cuda")
+            qkv = rand(b, t, (hq + 2 * hk) * d)
+            q = qkv[..., : hq * d].reshape(b, t, hq, d)
+            k = qkv[..., hq * d: (hq + hk) * d].reshape(b, t, hk, d)
+            wq = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            pos = torch.randint(0, 4096, (b, t), generator=gen, device="cuda")
+            cos, sin = transformer._rope_tables(pos, d, 1_000_000.0)
+            gate, up = rand(b, t, ffn, scale=3.0), rand(b, t, ffn)
+            calls = {
+                "add_rms_norm": [
+                    ("stream", (x, delta, w, 1e-6), nbytes(x, delta, w) + 2 * nbytes(x)),
+                    ("qk_heads", (q, None, wq, 1e-6), 2 * nbytes(q) + nbytes(wq))],
+                "rope_qk": [("qk", (q, k, cos, sin), 2 * nbytes(q, k) + nbytes(cos, sin))],
+                "silu_mul": [("ffn", (gate, up), nbytes(gate, up) + nbytes(gate))],
+            }
+            for name, mod in (("add_rms_norm", arn), ("rope_qk", rq), ("silu_mul", sm)):
+                kernel, plain = getattr(mod, name), getattr(mod, f"reference_{name}")
+                for what, args, moved in calls[name]:
+                    y, y2, ref = kernel(*args), kernel(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    y, y2, ref = ((v,) if torch.is_tensor(v) else v for v in (y, y2, ref))
+                    ulps = torch.cat([_ulps(a, r).flatten() for a, r in zip(y, ref)])
+                    case = {"talker": talker, "rows": rows, "what": what,
+                            "shape": [list(a.shape) for a in args if torch.is_tensor(a)],
+                            "bit_identical_across_launches":
+                                all(torch.equal(a, a2) for a, a2 in zip(y, y2)),
+                            "max_ulps": ulps.max().item(),
+                            "share_differing": (ulps > 0).float().mean().item()}
+                    if name == "add_rms_norm" and args[1] is not None:
+                        case["residual_bit_equal"] = torch.equal(y[0], ref[0])
+                    exact = name != "add_rms_norm"
+                    if not all(bool(torch.isfinite(a).all()) for a in y) \
+                            or not case["bit_identical_across_launches"] \
+                            or case["max_ulps"] > (0.0 if exact else 1.0) \
+                            or not case.get("residual_bit_equal", True):
+                        raise AssertionError(f"{name} disagrees with its plain version: {case}")
+                    if talker == "1.7B":
+                        case["ms"] = time_ms(lambda: kernel(*args))
+                        case["plain_ms"] = time_ms(lambda: plain(*args))
+                        case["host_us"] = host_us(lambda: kernel(*args))
+                        case["bound_ms"], case["bound_by"] = bound_ms(moved, 0, BF16_FLOP_PER_S)
+                    out[name].append(case)
+    sources = {"add_rms_norm": "residual add + RMSNorm (8 launches a norm, 1 an add)",
+               "rope_qk": "RoPE on q and k (10 launches each)",
+               "silu_mul": "SwiGLU's silu(gate) * up (5 launches)"}
+    entries = []
+    for name, cases in out.items():
+        main = cases[0]
+        big = next(c for c in cases if c["talker"] == "1.7B" and c["rows"] == 2048
+                   and c["what"] == main["what"])
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/rho_tts_tpu_torch/csrc/{name}.cu",
+            "replaces": f"none: the port's own ({sources[name]}; XLA fuses it in the JAX "
+                        f"package)",
+            "shape": f"1.7B {main['what']} {main['shape']}",
+            "max_ulps": max(c["max_ulps"] for c in cases),
+            "share_differing": max(c["share_differing"] for c in cases),
+            "cases": cases, "ms": main["ms"], "kernel_ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "host_us": main["host_us"],
+            "ms_2048_rows": big["ms"], "plain_ms_2048_rows": big["plain_ms"],
+            "bound_ms_2048_rows": big["bound_ms"],
+        })
+    return entries
+
+
 # Chatterbox "standard" talker: hidden 1024, 30 layers, 16 query and 16 KV
 # heads of 64 (group 1), ffn 4096; CFG folds each request into 2 rows.
 CB_HEADS, CB_D = 16, 64
@@ -1059,6 +1164,9 @@ KERNEL_NAMES = {
     "w8a8_matmul": re.compile(r"\bwgmma_kernel<|\bmma_kernel<\D"),
     "moe_experts": re.compile(r"\bmoe_kernel<"),
     "int8_gemv": re.compile(r"\bint8_gemv_kernel<"),
+    "add_rms_norm": re.compile(r"\badd_rms_norm_kernel<"),
+    "rope_qk": re.compile(r"\brope_qk_kernel\b"),
+    "silu_mul": re.compile(r"\bsilu_mul_kernel\b"),
 }
 
 
@@ -1308,10 +1416,24 @@ def synthesize_codes(model, kw, texts=TEXTS):
     return captured["codes"], waves, sr
 
 
-def run_main_path(qmodel, qz, kmods) -> dict:
+def glue_want(talker, forwards: int) -> dict:
+    """Launches of the talker block's glue kernels in ``forwards`` cached
+    forwards of a bf16 talker on the card: two norms a layer (each but the
+    first with the residual add before it) and the final norm, QK-norm's
+    two in each attention layer; one RoPE an attention layer; one SiLU.mul
+    a dense MLP."""
+    attn = talker.attn_layers
+    dense = talker.layers - talker.moe_layers
+    qk_norms = 2 * attn if talker.hybrid else 0
+    return {"add_rms_norm": (2 * talker.layers + 1 + qk_norms) * forwards,
+            "rope_qk": attn * forwards, "silu_mul": dense * forwards}
+
+
+def run_main_path(qmodel, qz, kmods, gmods) -> dict:
     """Phase 4: 1.7B weight-only int8, 4 chunks; no int4 or w8a8 launch.
     Every decode matmul runs in the int8 GEMV; only the prefills' (the
-    warm-up's and the timed call's) take the dequant route."""
+    warm-up's and the timed call's) take the dequant route. The glue
+    kernels (``gmods``) run in the prefill and in every step."""
     cfg = qmodel.PRESETS["1.7B"]
     t0 = time.perf_counter()
     model = qmodel.QwenTTSModel(cfg, seed=0, quantization="int8", device="cuda")
@@ -1319,11 +1441,12 @@ def run_main_path(qmodel, qz, kmods) -> dict:
     init_s = time.perf_counter() - t0
     qz.dequant_calls = 0
     out, _codes, _waves = timed_synthesize(
-        qmodel, model, kmods, 4 * qmodel._chunk(),
+        qmodel, model, {**kmods, **gmods}, 4 * qmodel._chunk(),
         lambda layers, steps: {"prefill_gqa_attention": layers,
                                "decode_gqa_attention": layers * steps,
                                "w8a8_matmul": 0, "int4_matmul": 0,
-                               "int8_gemv": 5 * layers * steps},
+                               "int8_gemv": 5 * layers * steps,
+                               **glue_want(cfg.talker, 1 + steps)},
     )
     want = 2 * 5 * cfg.talker.layers  # two prefills, five matmuls a layer
     if qz.dequant_calls != want:
@@ -4414,7 +4537,8 @@ def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
        3 chunks (192 frames): a warm-up (it captures the step) and a timed
        run with every kernel's launch count zeroed just before it: 6
        prefill attentions (the attention layers), 6 decode attentions and
-       2 x 22 expert launches a step, every chunk replayed and each step's
+       2 x 22 expert launches a step, the glue kernels of each forward
+       (:func:`glue_want`), every chunk replayed and each step's
        distinct experts between 4 and 32 in each of the 22 expert layers;
     b. ``stream_chunks`` of one of them, 2 chunks, the same way: one row
        touches exactly 4 experts a layer.
@@ -4437,7 +4561,8 @@ def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
     def expected(_layers, steps):
         return {"prefill_gqa_attention": talker.attn_layers,
                 "decode_gqa_attention": talker.attn_layers * steps,
-                "moe_experts": 2 * talker.moe_layers * steps}
+                "moe_experts": 2 * talker.moe_layers * steps,
+                **glue_want(talker, 1 + steps)}
 
     def chunk_spans(rows, steps):
         """The last ``steps // chunk`` decode chunks' span attributes (the
@@ -4528,15 +4653,20 @@ def main(argv=None) -> int:
     from rho_tts_tpu_torch.models import quantization as qz
     from rho_tts_tpu_torch.models.qwen import model as qmodel
     from rho_tts_tpu_torch.ops.cuda import _build
+    from rho_tts_tpu_torch.ops.cuda import add_rms_norm as arn
     from rho_tts_tpu_torch.ops.cuda import attention as attn
     from rho_tts_tpu_torch.ops.cuda import decode_attention as dec
     from rho_tts_tpu_torch.ops.cuda import int4_matmul as i4
     from rho_tts_tpu_torch.ops.cuda import int8_gemv as g8
     from rho_tts_tpu_torch.ops.cuda import moe_experts as moe
+    from rho_tts_tpu_torch.ops.cuda import rope_qk as rq
+    from rho_tts_tpu_torch.ops.cuda import silu_mul as sm
     from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as w8
 
     kmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec,
              "w8a8_matmul": w8, "int4_matmul": i4, "int8_gemv": g8}
+    # the talker's glue: counted exactly in phases 4 and 15, which run its benchmark paths
+    gmods = {"add_rms_norm": arn, "rope_qk": rq, "silu_mul": sm}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -4599,14 +4729,23 @@ def main(argv=None) -> int:
     for case in gemv_kernel["cases"]:
         log(f"  case {json.dumps(case)}")
     kernels.append(gemv_kernel)
+    glue_kernels = check_talker_glue(arn, rq, sm, gen)
+    for k in glue_kernels:
+        log(f"phase 2 {k['name']}: max {k['max_ulps']:.0f} ulp (share "
+            f"{k['share_differing']:.3g}), kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+            f"bound {k['bound_ms']:.5f} ms ({k['bound_by']}); at 2,048 rows kernel "
+            f"{k['ms_2048_rows']:.4f} ms, plain {k['plain_ms_2048_rows']:.4f} ms, bound "
+            f"{k['bound_ms_2048_rows']:.5f} ms; host {k['host_us']:.1f} us a call")
+        for case in k["cases"]:
+            log(f"  case {json.dumps(case)}")
 
     for quantization, w8a8 in ((None, False), ("int4", False), ("int8", True)):
         ref = check_against_cpu(qmodel, quantization, w8a8)
         log(f"phase 3 reference: {json.dumps(ref)}")
 
     # Every launch count below is of kernels run, a graph's replays included.
-    with GraphReplays(kmods) as replays:
-        main_path = run_main_path(qmodel, qz, kmods)
+    with GraphReplays({**kmods, **gmods}) as replays:
+        main_path = run_main_path(qmodel, qz, kmods, gmods)
         log(f"phase 4 main path: {json.dumps(main_path)}")
         int4_path = run_int4_path(qmodel, qz, kmods, os.path.join(os.path.dirname(src), "build"))
         int4_path["int8_talker_weight_bytes"] = main_path["talker_weight_bytes"]
@@ -4639,7 +4778,8 @@ def main(argv=None) -> int:
         log(f"phase 14 host layers: every part passed in {host_path['wall_s']:.1f} s")
     log(f"graph replays: {replays.replays}; the port's kernels in each graph's first, "
         f"traced replays: {json.dumps(replays.traces)}")
-    hkmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec, "moe_experts": moe}
+    hkmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec, "moe_experts": moe,
+              **gmods}
     with GraphReplays(hkmods) as hybrid_replays:
         hybrid_path = run_hybrid_path(qmodel, hkmods, smi)
     log(f"phase 15 hybrid talker: every part passed, peak {hybrid_path['peak_mem_gb']:.2f} GB; "
@@ -4692,6 +4832,11 @@ def main(argv=None) -> int:
     moe_kernel["launches_path"] = (f"lfm2-8b-a1b bf16, {hybrid_path['decode_steps']} decode "
                                    f"steps")
     kernels.append(moe_kernel)
+    for k in glue_kernels:
+        k["launches"] = main_path["launches"][k["name"]]
+        k["launches_path"] = f"1.7B int8, {main_path['decode_steps']} decode steps and a prefill"
+        k["launches_hybrid"] = hybrid_path["launches"][k["name"]]
+    kernels += glue_kernels
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

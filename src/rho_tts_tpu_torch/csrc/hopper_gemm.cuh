@@ -3,7 +3,7 @@
 // the A operand in registers and B in 128-byte-swizzled shared memory,
 // their fences, and the host-side tensor-map encoder, looked up at run
 // time through the runtime's entry-point query (no -lcuda). Included by
-// int4_matmul.cu and w8a8_matmul.cu.
+// int4_matmul.cu and w8a8_matmul.cu; the other kernels take its DeviceGuard.
 
 #pragma once
 

@@ -20,6 +20,13 @@ plain versions. A T > 1 forward over a used cache (speculative verify) is
 plain masked attention, as in the JAX package, whose einsum branch computes
 it outside any Pallas kernel.
 
+The block's f32 glue between its matmuls runs, on bf16 card tensors with
+grad mode off, in three more kernels: each norm with the
+residual add before it (``ops.cuda.add_rms_norm``), RoPE on q and k
+(``ops.cuda.rope_qk``) and SwiGLU's SiLU.mul (``ops.cuda.silu_mul``); the
+layers hand their output to the next norm as a pending ``delta``. On the
+CPU, in f32 and with grad mode on the same steps run as plain PyTorch chains.
+
 A hybrid talker (``TransformerConfig.layer_types`` / ``n_experts``: LFM2-MoE)
 keeps a weight stack per kind of layer and runs them in the schedule's
 order (:func:`_hybrid_forward`): gated short convolutions over an f32 state
@@ -56,8 +63,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from ..ops.cuda import add_rms_norm as _arn
+from ..ops.cuda import rope_qk as _rq
+from ..ops.cuda import silu_mul as _sm
 from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
 from ..ops.cuda.moe_experts import grouped_experts, moe_experts
@@ -225,11 +234,47 @@ def init_hybrid(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    normed = xf * torch.rsqrt(var + eps)
-    return (normed * weight).to(x.dtype)
+rms_norm = _arn.reference_rms_norm
+_rotate = _rq.reference_rotate
+
+
+def _kernels_take(x: torch.Tensor) -> bool:
+    """Whether the block's f32 glue (residual add + norm, RoPE, SiLU.mul)
+    runs in the hand-written kernels: bf16 on a card with grad mode off
+    (``no_grad`` / ``inference_mode``, as every inference path runs). With
+    grad mode on the plain chains run, in the whole of every differentiable
+    forward (training, LoRA, distillation), also where an op's own inputs
+    require no grad: a forward's bits then do not depend on which of its
+    tensors require grad (a pipeline stage's input does, the unmeshed
+    forward's embeddings do not). The CPU and f32 take the plain chains."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+
+
+def _add_norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.Tensor,
+              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual stream ``x + delta`` (x where ``delta`` is None) and its
+    RMSNorm: ``(x, normed)``. One ``add_rms_norm`` launch where
+    :func:`_kernels_take`, else the add and :func:`rms_norm`."""
+    if _kernels_take(x):
+        return _arn.add_rms_norm(x, delta, weight, eps)
+    return _arn.reference_add_rms_norm(x, delta, weight, eps)
+
+
+def _rope(q: torch.Tensor, k: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q and k rotated by the tables ``rope`` = ``(cos, sin)``: one
+    ``rope_qk`` launch where :func:`_kernels_take`, else :func:`_rotate`
+    of each."""
+    if _kernels_take(q):
+        return _rq.rope_qk(q, k, *rope)
+    return _rq.reference_rope_qk(q, k, *rope)
+
+
+def _swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in f32, cast to gate's dtype: one ``silu_mul``
+    launch where :func:`_kernels_take`, else the plain chain."""
+    if _kernels_take(gate):
+        return _sm.silu_mul(gate, up)
+    return _sm.reference_silu_mul(gate, up)
 
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -247,14 +292,6 @@ def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     inv = _inv_freq(head_dim, float(theta), positions.device)
     angles = positions[..., None].float() * inv  # (B, T, D/2)
     return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
-
-
-def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    d = x.shape[-1]
-    x1, x2 = x[..., : d // 2].float(), x[..., d // 2 :].float()
-    out1 = x1 * cos - x2 * sin
-    out2 = x2 * cos + x1 * sin
-    return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -279,42 +316,49 @@ def _split_qkv(qkv: torch.Tensor, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 # The block's shared math (the cached and the cache-less forward)
 # ---------------------------------------------------------------------------
+#
+# A layer's functions take the residual stream as ``(x, delta)``: ``delta``
+# is the previous sublayer's output, not yet added (None before the first),
+# which the next norm adds (:func:`_add_norm`: one launch on a card). They
+# return their own output as the next ``delta``.
 
 
-def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, rope, tp_grad=None):
-    """Attention norm, the fused QKV matmul and RoPE: ``(q, k, v)``.
-    ``tp_grad``: the differentiable TP forward's axis (``copy_to_model``
-    before the column-parallel ``wqkv``)."""
-    h = copy_to_model(rms_norm(x, params["attn_norm"], cfg.rms_eps), tp_grad)
-    qkv = qmm(h, params["wqkv"])
+def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, delta, rope, tp_grad=None):
+    """The residual add, attention norm, fused QKV matmul, QK-norm and RoPE:
+    ``(x, q, k, v)``, x with ``delta`` added. ``tp_grad``: the
+    differentiable TP forward's axis (``copy_to_model`` before the
+    column-parallel ``wqkv``)."""
+    x, h = _add_norm(x, delta, params["attn_norm"], cfg.rms_eps)
+    qkv = qmm(copy_to_model(h, tp_grad), params["wqkv"])
     q, k, v = _split_qkv(qkv, cfg)
     if "q_norm" in params:  # QK-norm (the hybrid talker): each head, before RoPE
-        q = rms_norm(q, params["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, params["k_norm"], cfg.rms_eps)
-    return _rotate(q, *rope), _rotate(k, *rope), v
+        _, q = _add_norm(q, None, params["q_norm"], cfg.rms_eps)
+        _, k = _add_norm(k, None, params["k_norm"], cfg.rms_eps)
+    q, k = _rope(q, k, rope)
+    return x, q, k, v
 
 
 def _attn_out(params: Params, cfg: TransformerConfig, x: torch.Tensor,
               attn: torch.Tensor, tp=None, tp_grad=None) -> torch.Tensor:
-    """Output projection and residual. Under ``tp`` the row-parallel ``wo``
-    sums over the axis in place; under ``tp_grad`` through Megatron's
-    differentiable ``reduce_from_model``."""
+    """The output projection: the attention sublayer's ``delta`` for the
+    stream ``x``. Under ``tp`` the row-parallel ``wo`` sums over the axis in
+    place; under ``tp_grad`` through Megatron's differentiable
+    ``reduce_from_model``."""
     b, t, _ = x.shape
     attn = attn.reshape(b, t, cfg.q_heads * cfg.head_dim).to(x.dtype)
-    return x + reduce_from_model(qmm(attn, params["wo"], reduce=tp), tp_grad)
+    return reduce_from_model(qmm(attn, params["wo"], reduce=tp), tp_grad)
 
 
-def _mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor, tp=None,
-         tp_grad=None) -> torch.Tensor:
-    """The SwiGLU MLP and residual. Under ``tp`` the row-parallel ``w_down``
-    sums over the axis in place; under ``tp_grad`` through the
-    differentiable pair (``copy_to_model`` before ``w_gate`` / ``w_up``,
-    ``reduce_from_model`` after ``w_down``)."""
-    h = copy_to_model(rms_norm(x, params["mlp_norm"], cfg.rms_eps), tp_grad)
-    gate = F.silu(qmm(h, params["w_gate"]).float())
-    up = qmm(h, params["w_up"]).float()
-    down = qmm((gate * up).to(x.dtype), params["w_down"], reduce=tp)
-    return x + reduce_from_model(down, tp_grad)
+def _mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor, delta, tp=None,
+         tp_grad=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add, MLP norm and SwiGLU MLP: ``(x, its delta)``. Under
+    ``tp`` the row-parallel ``w_down`` sums over the axis in place; under
+    ``tp_grad`` through the differentiable pair (``copy_to_model`` before
+    ``w_gate`` / ``w_up``, ``reduce_from_model`` after ``w_down``)."""
+    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps)
+    h = copy_to_model(h, tp_grad)
+    act = _swiglu(qmm(h, params["w_gate"]), qmm(h, params["w_up"]))
+    return x, reduce_from_model(qmm(act, params["w_down"], reduce=tp), tp_grad)
 
 
 def _masked_attention(q, k, v, mask: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -374,10 +418,16 @@ def block_forward(
         rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     if mask is None:
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
-    q, k, v = _qkv(params, cfg, x, rope, tp_grad=tp)
+    x, delta, kv = _block_cacheless(params, cfg, x, None, rope, mask, tp)
+    return x + delta, kv
+
+
+def _block_cacheless(params, cfg, x, delta, rope, mask, tp=None):
+    """:func:`block_forward` on the stream ``(x, delta)``: ``(x, delta, (k, v))``."""
+    x, q, k, v = _qkv(params, cfg, x, delta, rope, tp_grad=tp)
     attn = _masked_attention(q, k, v, mask, cfg)
-    x = _attn_out(params, cfg, x, attn, tp_grad=tp)
-    return _mlp(params, cfg, x, tp_grad=tp), (k, v)
+    x, delta = _mlp(params, cfg, x, _attn_out(params, cfg, x, attn, tp_grad=tp), tp_grad=tp)
+    return x, delta, (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +495,7 @@ def _block_forward_cached(
     params: Params,
     cfg: TransformerConfig,
     x: torch.Tensor,  # (B, T, hidden)
+    delta: Optional[torch.Tensor],  # the previous layer's output, not yet added to x
     rope: Tuple[torch.Tensor, torch.Tensor],  # cos/sin tables of the positions
     ck_all: torch.Tensor,  # (L, B, S, Hkv, D), written in place
     cv_all: torch.Tensor,
@@ -454,8 +505,9 @@ def _block_forward_cached(
     mask: Optional[torch.Tensor],  # (B, S) when T == 1, (B, 1, T, S) when T > 1
     tp=None,
     sp=None,
-) -> torch.Tensor:
-    """One cached transformer block writing its K/V at ``[slot, slot+T)``.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cached transformer block writing its K/V at ``[slot, slot+T)``:
+    ``(x, delta)``, the stream and the block's output, not yet added.
 
     ``mask`` is the complete key mask built once by :func:`stack_forward`;
     ``None`` means the chunk is a prefill into an empty cache, which the
@@ -465,18 +517,18 @@ def _block_forward_cached(
     and attended by the local queries at their global offset.
     """
     with profiling.region("talker/attention"):
-        x = _attention_cached(params, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
-                              tp, sp)
+        x, delta = _attention_cached(params, cfg, x, delta, rope, ck_all, cv_all, layer, slot,
+                                     attn_mask, mask, tp, sp)
     with profiling.region("talker/mlp"):
-        return _mlp(params, cfg, x, tp)
+        return _mlp(params, cfg, x, delta, tp)
 
 
-def _attention_cached(params, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
-                      tp=None, sp=None) -> torch.Tensor:
-    """The attention half of :func:`_block_forward_cached`: K/V written at
-    ``[slot, slot+T)`` of cache layer ``layer``, attention, output projection
-    and residual."""
-    q, k, v = _qkv(params, cfg, x, rope)
+def _attention_cached(params, cfg, x, delta, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
+                      tp=None, sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention half of :func:`_block_forward_cached`: the residual add
+    and norm, K/V written at ``[slot, slot+T)`` of cache layer ``layer``,
+    attention and the output projection: ``(x, delta)``."""
+    x, q, k, v = _qkv(params, cfg, x, delta, rope)
     if sp is not None:
         k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
     b, t = k.shape[:2]
@@ -509,7 +561,7 @@ def _attention_cached(params, cfg, x, rope, ck_all, cv_all, layer, slot, attn_ma
         # T > 1 over a used cache (speculative verify): JAX computes it as
         # plain masked attention (its einsum branch), and so does the port.
         attn = _masked_attention(q, ck_all[layer], cv_all[layer], mask, cfg)
-    return _attn_out(params, cfg, x, attn, tp)
+    return x, _attn_out(params, cfg, x, attn, tp)
 
 
 def _slot_columns(slot: torch.Tensor, t: int) -> torch.Tensor:
@@ -664,15 +716,16 @@ def stack_forward(
     # once, where indexing (L, ...) per layer would zero-fill and add a whole
     # (L, ...) gradient for every layer.
     per_layer = {name: _unbind(w) for name, w in blocks.items()}
+    delta = None
     if kv_caches is None:
         mask = _causal_mask(x.shape[1], attn_mask, x.device)
         ks, vs = [], []
         for layer in range(int(blocks["attn_norm"].shape[0])):
             lp = {name: w[layer] for name, w in per_layer.items()}
-            x, (k, v) = block_forward(lp, cfg, x, positions, rope=rope, mask=mask, tp=tp)
+            x, delta, (k, v) = _block_cacheless(lp, cfg, x, delta, rope, mask, tp)
             ks.append(k)
             vs.append(v)
-        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps)
         return x, (torch.stack(ks), torch.stack(vs))
 
     ck_all, cv_all = kv_caches
@@ -680,9 +733,9 @@ def stack_forward(
                                 fused_prefill, slot_causal, block_causal, uniform_slot)
     for layer in range(int(ck_all.shape[0])):
         lp = {name: w[layer] for name, w in per_layer.items()}
-        x = _block_forward_cached(lp, cfg, x, rope, ck_all, cv_all, layer, slot, attn_mask, mask,
-                                  tp, sp)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        x, delta = _block_forward_cached(lp, cfg, x, delta, rope, ck_all, cv_all, layer, slot,
+                                         attn_mask, mask, tp, sp)
+    _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps)
     if sp is not None:
         x = all_gather(x, 1, sp)
     return x, (ck_all, cv_all)
@@ -742,36 +795,41 @@ def _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask, 
         seen[kind] += 1
         return {name: w[i] for name, w in stacks[kind].items()}, i
 
+    delta = None
     for layer, kind in enumerate(cfg.schedule):
         if kind == "conv":
             lp, c = take("conv")
             with profiling.region("talker/conv"):
-                x = _conv_block(lp, cfg, x, conv_state[c], attn_mask)
+                x, delta = _conv_block(lp, cfg, x, delta, conv_state[c], attn_mask)
         else:
             lp, a = take("attn")
             with profiling.region("talker/attention"):
-                x = _attention_cached(lp, cfg, x, rope, ck_all, cv_all, a, slot, attn_mask, mask)
+                x, delta = _attention_cached(lp, cfg, x, delta, rope, ck_all, cv_all, a, slot,
+                                             attn_mask, mask)
         if cfg.n_experts and layer >= cfg.dense_layers:
             lp, m = take("moe")
             with profiling.region("talker/moe"):
-                x = _moe_block(lp, cfg, x, None if expert_hits is None else expert_hits[m])
+                x, delta = _moe_block(lp, cfg, x, delta,
+                                      None if expert_hits is None else expert_hits[m])
         else:
             lp, _ = take("ffn")
             with profiling.region("talker/mlp"):
-                x = _mlp(lp, cfg, x)
-    return rms_norm(x, params["final_norm"], cfg.rms_eps), (ck_all, cv_all)
+                x, delta = _mlp(lp, cfg, x, delta)
+    return _add_norm(x, delta, params["final_norm"], cfg.rms_eps)[1], (ck_all, cv_all)
 
 
-def _conv_block(params, cfg, x, state, attn_mask):
-    """The gated short convolution and residual: ``B, C, x~ = in_proj(norm(x))``,
-    ``u = B * x~``, ``y = C * conv(u)`` with ``conv`` causal and depthwise over
-    ``CONV_TAPS`` taps, ``x + out_proj(y)``. ``state`` ``(B, K - 1, H)`` f32
+def _conv_block(params, cfg, x, delta, state, attn_mask):
+    """The residual add, then the gated short convolution: ``B, C, x~ =
+    in_proj(norm(x))``, ``u = B * x~``, ``y = C * conv(u)`` with ``conv``
+    causal and depthwise over ``CONV_TAPS`` taps, ``(x, out_proj(y))`` (the
+    stream and the sublayer's delta). ``state`` ``(B, K - 1, H)`` f32
     holds the ``u`` of the K - 1 positions before ``x`` and is replaced by the
     last K - 1 of this call (in place). ``u`` is 0 where ``attn_mask`` is
     False, so left padding never reaches a real token. f32 from ``u`` to
     ``y``."""
     hd = cfg.hidden
-    bcx = qmm(rms_norm(x, params["conv_norm"], cfg.rms_eps), params["in_proj"])
+    x, h = _add_norm(x, delta, params["conv_norm"], cfg.rms_eps)
+    bcx = qmm(h, params["in_proj"])
     u = bcx[..., :hd].float() * bcx[..., 2 * hd:]
     if attn_mask is not None:
         u = u.masked_fill(~attn_mask.bool()[..., None], 0.0)
@@ -780,7 +838,7 @@ def _conv_block(params, cfg, x, state, attn_mask):
     conv = (full.unfold(1, taps, 1) * params["conv_w"]).sum(dim=-1)  # (B, T, H)
     state.copy_(full[:, -(taps - 1):])
     y = (bcx[..., hd:2 * hd].float() * conv).to(x.dtype)
-    return x + qmm(y, params["out_proj"])
+    return x, qmm(y, params["out_proj"])
 
 
 def route_experts(h, router, bias, cfg: TransformerConfig):
@@ -795,18 +853,19 @@ def route_experts(h, router, bias, cfg: TransformerConfig):
     return idx, weight / (weight.sum(dim=-1, keepdim=True) + 1e-6)
 
 
-def _moe_block(params, cfg, x, hits):
-    """The routed experts and residual. A decode step (T == 1) runs the
-    experts kernel, which reads only the experts its rows chose; a prefill
-    groups the tokens by expert after a host read of the counts. ``hits``
-    ``(E,)`` int32, if given, becomes 1 for each expert chosen, else 0 (on
-    the device)."""
+def _moe_block(params, cfg, x, delta, hits):
+    """The residual add, then the routed experts: ``(x, their delta)``. A
+    decode step (T == 1) runs the experts kernel, which reads only the
+    experts its rows chose; a prefill groups the tokens by expert after a
+    host read of the counts. ``hits`` ``(E,)`` int32, if given, becomes 1 for
+    each expert chosen, else 0 (on the device)."""
     b, t, hd = x.shape
-    h = rms_norm(x, params["mlp_norm"], cfg.rms_eps).reshape(b * t, hd)
+    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps)
+    h = h.reshape(b * t, hd)
     idx, weight = route_experts(h, params["router"], params["expert_bias"], cfg)
     run = moe_experts if t == 1 else grouped_experts
     out = run(h, idx, weight, params["w_gate"], params["w_up"], params["w_down"], hits)
-    return x + out.view(b, t, hd).to(x.dtype)
+    return x, out.view(b, t, hd).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
