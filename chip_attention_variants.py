@@ -144,10 +144,10 @@ def main() -> int:
     for tag, lib in dlibs.items():
         fn = lib.rho_decode_attention
         fn.restype, fn.argtypes = ctypes.c_int, dec._kernel()[0].argtypes
-        if fn(*ptrs, *args, dev, stream) != 0:
+        if fn(*ptrs, *args, 0.0, dev, stream) != 0:
             raise RuntimeError(f"decode variant {tag!r} did not launch")
         report["decode_us"][tag] = chip_smoke.time_ms(
-            lambda: fn(*ptrs, *args, dev, stream)) * 1e3
+            lambda: fn(*ptrs, *args, 0.0, dev, stream)) * 1e3
 
     # The decode kernel's slice length, through the wrapper.
     plan = dec.plan_splits
@@ -175,10 +175,10 @@ def main() -> int:
     for tag, lib in plibs.items():
         fn = lib.rho_prefill_attention
         fn.restype, fn.argtypes = ctypes.c_int, attn._kernel().argtypes
-        if fn(*pptrs, *pargs, 0, 1, pdev, stream) != 0:
+        if fn(*pptrs, *pargs, 0, 1, 0.0, pdev, stream) != 0:
             raise RuntimeError(f"prefill variant {tag!r} did not launch")
         report["prefill_us"][tag] = chip_smoke.time_ms(
-            lambda: fn(*pptrs, *pargs, 0, 1, pdev, stream)) * 1e3
+            lambda: fn(*pptrs, *pargs, 0, 1, 0.0, pdev, stream)) * 1e3
 
     report["l2_warm_us"] = {
         "decode": warm_us(lambda: dec.decode_gqa_attention(q, k, v, mask)),
@@ -196,7 +196,7 @@ def main() -> int:
             lambda: torch.cuda.current_stream(q.device).cuda_stream),
         "torch._C._cuda_getCurrentRawStream(dev)": host_us(
             lambda: torch._C._cuda_getCurrentRawStream(dev)),
-        "the ctypes call with its launch": host_us(lambda: fn(*ptrs, *args, dev, stream)),
+        "the ctypes call with its launch": host_us(lambda: fn(*ptrs, *args, 0.0, dev, stream)),
         "a PyTorch op with one launch (zero_)": host_us(lambda: out.zero_()),
     }
     torch.cuda.synchronize()

@@ -20,7 +20,8 @@ Phases, each fatal on failure:
    GEMV at the 1.7B's decode shapes (see :func:`check_int8_gemv`); the
    talker block's glue, ``add_rms_norm``, ``rope_qk`` and ``silu_mul``, at
    the three benchmark talkers' and Chatterbox's widths for 8 and 2,048
-   rows (see :func:`check_talker_glue`);
+   rows (see :func:`check_talker_glue`); the Mamba-2 decode step
+   ``ssm_step`` at granite-4.0-h-small's widths (see :func:`check_ssm_step`);
 3. reference: the tiny preset at fp32, kernels on the card against the
    plain versions on the CPU with the same weights (prefill logits), with
    dense weights, int4 weights, and int8 weights with w8a8 prefill;
@@ -112,7 +113,13 @@ Phases, each fatal on failure:
     up and once with exact launch counts, every chunk replayed. Its kernels
     are the two attention kernels, ``moe_experts``, whose entry takes its
     ``launches`` from here, and the talker's glue kernels (their entries'
-    ``launches_hybrid``).
+    ``launches_hybrid``);
+16. state-space talker (see :func:`run_hybrid_path`): ``granite-4.0-h-small``
+    in bf16 (36 Mamba-2 mixers, 4 attention layers without RoPE, 72 routed
+    experts and a shared one in every layer, 64 GB of weights) the same
+    way, every chunk replayed, 36 ``ssm_step`` launches a decode step; the
+    ``ssm_step`` entry takes its ``launches`` from here, the others'
+    ``launches_granite``.
 
 From phase 4 on, a kernel's launch count includes the launches that the
 replays of a CUDA graph (the Qwen decode step) run, read from traces of
@@ -953,6 +960,74 @@ def check_moe_experts(moe, gen) -> dict:
     }
 
 
+def check_ssm_step(ssm, gen) -> dict:
+    """The Mamba-2 decode step at granite-4.0-h-small's widths (128 heads of
+    64, a state of 128, 4 taps over 8,448 channels), from random states and
+    ``in_proj`` outputs, against the plain version on the same card tensors
+    at 8 rows (the benchmark cell's; the main case), 1 and 64. The outputs
+    within 2% of the largest (bf16, the read-out's sum over the state in
+    another order), the states within 1e-5 (their update rounds as the
+    plain version's); the tolerance must refuse the plain version with the
+    state kept in bf16. Each case launched twice on copies of the same
+    states: the same bits. Timed against the bound of the state read and
+    written once in f32 (with the other inputs and outputs)."""
+    heads, p, n, taps = 128, 64, 128, 4
+    di, cd = heads * p, heads * p + 2 * n
+    width = di + cd + heads
+    conv_w = (torch.randn((cd, taps), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    conv_b = (torch.randn((cd,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    dt0 = torch.exp(torch.rand((heads,), generator=gen, device="cuda")
+                    * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    a_log = torch.log(torch.rand((heads,), generator=gen, device="cuda") * 15 + 1)
+    d = torch.ones((heads,), device="cuda")
+    cases = []
+    for rows in (8, 1, 64):
+        z = torch.randn((rows, width), generator=gen, device="cuda").to(torch.bfloat16)
+        conv = torch.randn((rows, taps - 1, cd), generator=gen, device="cuda")
+        scan = torch.randn((rows, heads, p, n), generator=gen, device="cuda") * 0.1
+        params = (conv_w, conv_b, dt_bias, a_log, d)
+        runs = []
+        for fn in (ssm.ssm_step, ssm.ssm_step, ssm.reference_ssm_step):
+            states = (conv.clone(), scan.clone())
+            runs.append((fn(z, *states, *params), states))
+        (out, st), (out2, st2), (ref, st_ref) = runs
+        tol = 2e-2 * ref.float().abs().max().item()
+        state_err = max((a - b).abs().max().item() for a, b in zip(st, st_ref))
+        half = scan.clone()
+        ssm.reference_ssm_step(z, conv.clone(), half, *params)
+        half_err = (half.to(torch.bfloat16).float() - st_ref[1]).abs().max().item()
+        case = {"rows": rows, "state_max_err": state_err, "state_bf16_err": half_err,
+                "states_bit_equal": all(torch.equal(a, b) for a, b in zip(st, st2))}
+        _held(cases, "ssm_step", case, out.float(), out2.float(), ref.float(), tol)
+        if not (case["states_bit_equal"] and state_err <= 1e-5 < half_err):
+            raise AssertionError(f"ssm_step {case}")
+        n_bytes = (2 * scan.numel() * 4 + z.numel() * 2 + 2 * conv.numel() * 4
+                   + (conv_w.numel() + conv_b.numel()) * 2 + 3 * heads * 4 + rows * di * 2)
+        ops = rows * (2 * taps * cd + 5 * heads * p * n)
+        case["bound_ms"], case["bound_by"] = bound_ms(n_bytes, ops, FP32_FLOP_PER_S)
+        states = (conv.clone(), scan.clone())
+        case.update(ms=time_ms(lambda: ssm.ssm_step(z, *states, *params)),
+                    plain_ms=time_ms(lambda: ssm.reference_ssm_step(z, *states, *params),
+                                     iters=10),
+                    host_us=host_us(lambda: ssm.ssm_step(z, *states, *params)))
+        case["roofline_pct"] = 100.0 * case["bound_ms"] / case["ms"]
+    main = cases[0]
+    return {
+        "name": "ssm_step", "route": "cuda",
+        "source": "src/rho_tts_tpu_torch/csrc/ssm_step.cu",
+        "replaces": None,  # the JAX package has no state-space layer
+        "shape": f"in_proj out ({main['rows']},{width}) bf16, S ({main['rows']},{heads},{p},{n}) "
+                 f"f32 -> ({main['rows']},{di}) bf16",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tol": "2e-2 x the largest output; states 1e-5", "cases": cases,
+        "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "host_us": main["host_us"],
+        "library": "none: no one PyTorch call computes the step",
+    }
+
+
 def check_chatterbox_shapes(attn, dec, qz, w8, i4, gen) -> dict:
     """Phase 2 at the Chatterbox shapes: every kernel of its path (D = 64,
     group 1, K = 1024 / 4096), against its plain version, twice for the same
@@ -1167,6 +1242,7 @@ KERNEL_NAMES = {
     "add_rms_norm": re.compile(r"\badd_rms_norm_kernel<"),
     "rope_qk": re.compile(r"\brope_qk_kernel\b"),
     "silu_mul": re.compile(r"\bsilu_mul_kernel\b"),
+    "ssm_step": re.compile(r"\bssm_step_kernel<"),
 }
 
 
@@ -1420,13 +1496,16 @@ def glue_want(talker, forwards: int) -> dict:
     """Launches of the talker block's glue kernels in ``forwards`` cached
     forwards of a bf16 talker on the card: two norms a layer (each but the
     first with the residual add before it) and the final norm, QK-norm's
-    two in each attention layer; one RoPE an attention layer; one SiLU.mul
-    a dense MLP."""
+    two in each attention layer of a hybrid talker with QK-norm, a Mamba
+    layer's gated norm; one RoPE an attention layer that rotates; one
+    SiLU.mul a dense MLP, and one a shared expert."""
     attn = talker.attn_layers
     dense = talker.layers - talker.moe_layers
-    qk_norms = 2 * attn if talker.hybrid else 0
-    return {"add_rms_norm": (2 * talker.layers + 1 + qk_norms) * forwards,
-            "rope_qk": attn * forwards, "silu_mul": dense * forwards}
+    qk_norms = 2 * attn if talker.hybrid and talker.qk_norm else 0
+    shared = talker.moe_layers if talker.shared_ffn else 0
+    return {"add_rms_norm": (2 * talker.layers + 1 + qk_norms + talker.mamba_layers) * forwards,
+            "rope_qk": (attn if talker.rope else 0) * forwards,
+            "silu_mul": (dense + shared) * forwards}
 
 
 def run_main_path(qmodel, qz, kmods, gmods) -> dict:
@@ -4530,18 +4609,22 @@ def _cell_texts(n: int = 8):
             for i, m in enumerate(lengths)]
 
 
-def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
-    """Phase 15: the hybrid talker ``lfm2-8b-a1b`` (random weights, bf16).
+def run_hybrid_path(qmodel, hkmods, smi: str, preset: str = "lfm2-8b-a1b",
+                    phase: int = 15) -> dict:
+    """Phase 15 (``lfm2-8b-a1b``) or 16 (``granite-4.0-h-small``): a hybrid
+    talker ``preset`` (random weights, bf16, each weight on the card once).
 
     a. ``synthesize`` of the benchmark cell's 8 rows of 120-220 characters,
        3 chunks (192 frames): a warm-up (it captures the step) and a timed
-       run with every kernel's launch count zeroed just before it: 6
-       prefill attentions (the attention layers), 6 decode attentions and
-       2 x 22 expert launches a step, the glue kernels of each forward
-       (:func:`glue_want`), every chunk replayed and each step's
-       distinct experts between 4 and 32 in each of the 22 expert layers;
+       run with every kernel's launch count zeroed just before it: one
+       prefill attention an attention layer and one decode attention an
+       attention layer and step, one ``ssm_step`` a Mamba layer and step
+       (the prefill scans in plain PyTorch), 2 expert launches an expert
+       layer and step, the glue kernels of each forward (:func:`glue_want`),
+       every chunk replayed and each step's distinct experts between top-k
+       and the experts in each expert layer;
     b. ``stream_chunks`` of one of them, 2 chunks, the same way: one row
-       touches exactly 4 experts a layer.
+       touches exactly top-k experts a layer.
     ``hkmods`` are the wrappers whose kernels the path runs; the replays'
     launches are counted by :class:`GraphReplays`.
     """
@@ -4550,19 +4633,23 @@ def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = qmodel.PRESETS["lfm2-8b-a1b"]
+    cfg = qmodel.PRESETS[preset]
     talker = cfg.talker
     t0 = time.perf_counter()
     model = qmodel.QwenTTSModel(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9
     chunk = qmodel._chunk()
 
     def expected(_layers, steps):
-        return {"prefill_gqa_attention": talker.attn_layers,
-                "decode_gqa_attention": talker.attn_layers * steps,
-                "moe_experts": 2 * talker.moe_layers * steps,
-                **glue_want(talker, 1 + steps)}
+        out = {"prefill_gqa_attention": talker.attn_layers,
+               "decode_gqa_attention": talker.attn_layers * steps,
+               "moe_experts": 2 * talker.moe_layers * steps,
+               **glue_want(talker, 1 + steps)}
+        if "ssm_step" in hkmods:
+            out["ssm_step"] = talker.mamba_layers * steps
+        return out
 
     def chunk_spans(rows, steps):
         """The last ``steps // chunk`` decode chunks' span attributes (the
@@ -4570,22 +4657,23 @@ def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
         spans = [s["attrs"] for s in profiling.spans()
                  if s["name"] == "qwen/decode_chunk"][-(steps // chunk):]
         if len(spans) != steps // chunk or any(s["graph"] != "replay" for s in spans):
-            raise AssertionError(f"hybrid path: chunks ran {[s['graph'] for s in spans]}, "
+            raise AssertionError(f"{preset} path: chunks ran {[s['graph'] for s in spans]}, "
                                  f"not all replayed")
         touched = [n for s in spans for step in s["experts_touched"] for n in step]
         low, high = talker.experts_per_token, min(talker.n_experts,
                                                   rows * talker.experts_per_token)
         if len(touched) != len(spans) * chunk * talker.moe_layers or \
                 not low <= min(touched) <= max(touched) <= high:
-            raise AssertionError(f"hybrid path: experts_touched outside {low}-{high}")
+            raise AssertionError(f"{preset} path: experts_touched outside {low}-{high}")
         return spans, sum(touched) / len(touched)
 
     texts = _cell_texts()
     profiling.reset()
     a, _codes, _waves = timed_synthesize(qmodel, model, hkmods, 3 * chunk, expected, texts)
     spans, a["experts_touched_mean"] = chunk_spans(len(texts), a["decode_steps"])
-    a["chunks_replayed"] = len(spans)
-    log(f"phase 15 a_synthesize ({smi}): {json.dumps(a)}")
+    prefill = [s["attrs"] for s in profiling.spans() if s["name"] == "qwen/prefill"]
+    a.update(chunks_replayed=len(spans), ssm_chunks=prefill[-1].get("ssm_chunks"))
+    log(f"phase {phase} a_synthesize ({smi}): {json.dumps(a)}")
 
     def stream():
         return [p for p, _ in model.stream_chunks(texts[0], min_frames=2 * chunk,
@@ -4604,18 +4692,18 @@ def run_hybrid_path(qmodel, hkmods, smi: str) -> dict:
     launches = {name: mod.launches for name, mod in hkmods.items()}
     steps = len(clock.events["decode_chunk"]) * chunk
     if launches != expected(talker.layers, steps):
-        raise AssertionError(f"hybrid stream: launch counts {launches}, expected "
+        raise AssertionError(f"{preset} stream: launch counts {launches}, expected "
                              f"{expected(talker.layers, steps)} ({steps} decode steps)")
     spans, touched_mean = chunk_spans(1, steps)
     if touched_mean != talker.experts_per_token:
-        raise AssertionError(f"hybrid stream: one row touched {touched_mean} experts a layer")
+        raise AssertionError(f"{preset} stream: one row touched {touched_mean} experts a layer")
     if not all(bool(torch.isfinite(p).all()) for p in pieces):
-        raise AssertionError("hybrid stream: a piece is not finite")
+        raise AssertionError(f"{preset} stream: a piece is not finite")
     b = {"decode_steps": steps, "wall_s": wall_s, "decode_ms": clock.ms("decode_chunk"),
          "decode_ms_per_step": clock.ms("decode_chunk") / steps, "pieces": len(pieces),
          "chunks_replayed": len(spans), "launches": launches}
-    log(f"phase 15 b_stream_chunks ({smi}): {json.dumps(b)}")
-    out = {"a_synthesize": a, "b_stream_chunks": b, "init_s": init_s,
+    log(f"phase {phase} b_stream_chunks ({smi}): {json.dumps(b)}")
+    out = {"a_synthesize": a, "b_stream_chunks": b, "init_s": init_s, "weight_gb": weight_gb,
            "launches": {name: a["launches"][name] + b["launches"][name] for name in hkmods},
            "decode_steps": a["decode_steps"] + b["decode_steps"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -4661,6 +4749,7 @@ def main(argv=None) -> int:
     from rho_tts_tpu_torch.ops.cuda import moe_experts as moe
     from rho_tts_tpu_torch.ops.cuda import rope_qk as rq
     from rho_tts_tpu_torch.ops.cuda import silu_mul as sm
+    from rho_tts_tpu_torch.ops.cuda import ssm_step as ssm
     from rho_tts_tpu_torch.ops.cuda import w8a8_matmul as w8
 
     kmods = {"prefill_gqa_attention": attn, "decode_gqa_attention": dec,
@@ -4729,6 +4818,13 @@ def main(argv=None) -> int:
     for case in gemv_kernel["cases"]:
         log(f"  case {json.dumps(case)}")
     kernels.append(gemv_kernel)
+    ssm_kernel = check_ssm_step(ssm, gen)
+    log(f"phase 2 ssm_step: max_abs_err {ssm_kernel['max_abs_err']:.3g} "
+        f"(tol {ssm_kernel['tol']}), kernel {ssm_kernel['ms']:.4f} ms, "
+        f"plain {ssm_kernel['plain_ms']:.4f} ms, bound {ssm_kernel['bound_ms']:.5f} ms "
+        f"({ssm_kernel['bound_by']}), host {ssm_kernel['host_us']:.1f} us a call")
+    for case in ssm_kernel["cases"]:
+        log(f"  case {json.dumps(case)}")
     glue_kernels = check_talker_glue(arn, rq, sm, gen)
     for k in glue_kernels:
         log(f"phase 2 {k['name']}: max {k['max_ulps']:.0f} ulp (share "
@@ -4784,6 +4880,13 @@ def main(argv=None) -> int:
         hybrid_path = run_hybrid_path(qmodel, hkmods, smi)
     log(f"phase 15 hybrid talker: every part passed, peak {hybrid_path['peak_mem_gb']:.2f} GB; "
         f"graph replays {hybrid_replays.replays}, traced: {json.dumps(hybrid_replays.traces)}")
+    gkmods = {**hkmods, "ssm_step": ssm}
+    with GraphReplays(gkmods) as granite_replays:
+        granite_path = run_hybrid_path(qmodel, gkmods, smi, "granite-4.0-h-small", 16)
+    log(f"phase 16 state-space talker: every part passed, weights "
+        f"{granite_path['weight_gb']:.2f} GB, peak {granite_path['peak_mem_gb']:.2f} GB; "
+        f"graph replays {granite_replays.replays}, traced: "
+        f"{json.dumps(granite_replays.traces)}")
     paths = {"prefill_gqa_attention": ("int8", main_path),
              "decode_gqa_attention": ("int8", main_path),
              "w8a8_matmul": ("int8+w8a8 prefill", w8a8_path),
@@ -4825,17 +4928,24 @@ def main(argv=None) -> int:
         k["launches_sharded_training"] = sharded_path["launches"][k["name"]]
         k["launches_host_layers"] = host_path["launches"][k["name"]]
         k["launches_hybrid"] = hybrid_path["launches"].get(k["name"], 0)
+        k["launches_granite"] = granite_path["launches"].get(k["name"], 0)
         if not any(k["launches_parallel"].values()):
             raise AssertionError(f"phase 12: {k['name']} was launched no time on the mesh path")
 
     moe_kernel["launches"] = hybrid_path["launches"]["moe_experts"]
     moe_kernel["launches_path"] = (f"lfm2-8b-a1b bf16, {hybrid_path['decode_steps']} decode "
                                    f"steps")
+    moe_kernel["launches_granite"] = granite_path["launches"]["moe_experts"]
     kernels.append(moe_kernel)
+    ssm_kernel["launches"] = granite_path["launches"]["ssm_step"]
+    ssm_kernel["launches_path"] = (f"granite-4.0-h-small bf16, {granite_path['decode_steps']} "
+                                   f"decode steps")
+    kernels.append(ssm_kernel)
     for k in glue_kernels:
         k["launches"] = main_path["launches"][k["name"]]
         k["launches_path"] = f"1.7B int8, {main_path['decode_steps']} decode steps and a prefill"
         k["launches_hybrid"] = hybrid_path["launches"][k["name"]]
+        k["launches_granite"] = granite_path["launches"][k["name"]]
     kernels += glue_kernels
     log(json.dumps({"kernels": kernels}))
     log(smi)

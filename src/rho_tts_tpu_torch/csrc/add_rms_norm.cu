@@ -6,13 +6,14 @@
 // Eager PyTorch ran each norm as eight launches (cast, square, mean, + eps,
 // rsqrt, two products, cast) and each residual add as one more; this kernel
 // is both in one launch. For rows of x (bf16, read through two strides:
-// (rows, groups, d)), an optional delta (bf16, contiguous) and the f32
-// weight (d):
-//   res = bf16(x + delta)                          (the new residual stream)
+// (rows, groups, d)), an optional delta (bf16, contiguous), a scale on it
+// (a talker's residual multiplier, 1 by default) and the f32 weight (d):
+//   res = bf16(x + scale * delta)                  (the new residual stream)
 //   out = bf16(float(res) * rsqrt(mean(float(res)^2) + eps) * weight)
 // in the plain version's order (ops/cuda/add_rms_norm.py
 // `reference_rms_norm`): each product and sum rounded on its own in f32, the
-// mean as the sum times 1/d, rsqrtf as PyTorch's rsqrt calls it. Only the
+// mean as the sum times 1/d, rsqrtf as PyTorch's rsqrt calls it; scale *
+// delta rounded before the sum, which a scale of 1 leaves exact. Only the
 // order of the mean's sum differs from PyTorch's reduction (each lane's
 // values, then across lanes), so `out` can differ from the plain chain by
 // one bf16 unit where two f32 sums round apart.
@@ -23,7 +24,8 @@
 //
 // Design: a group of L lanes owns a row, L = d / 8 rounded up to a power
 // of two, at most 256 (a whole block: a decode step's 8 rows of 2,048 go to
-// 8 blocks on 8 SMs, not through one SM's load path). Each lane loads V
+// 8 blocks on 8 SMs, not through one SM's load path), V = 1 up to d = 2,048
+// and up to 4 at d = 8,192 (the Mamba mixer's gated norm). Each lane loads V
 // 16-byte vectors of x, delta and the weight at once (the lane's i-th
 // vector is the row's (lane + i L)-th, so a warp's loads are whole lines),
 // keeps them in registers as f32, sums its squares; the group adds its
@@ -45,7 +47,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxD = 4096;
+constexpr int kMaxD = 8192;
 
 struct Args {
   const __nv_bfloat16* x;
@@ -56,7 +58,7 @@ struct Args {
   long long rows, groups;  // x is (rows, groups, d)
   long long sx_r, sx_g;    // its strides, in elements
   int d;
-  float inv_d, eps;
+  float inv_d, eps, scale;
 };
 
 template <int L, int V>
@@ -83,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) add_rms_norm_kernel(const Args a) {
       bf16x8::load_f32(a.w + c * 8, w[i]);
       if (a.delta != nullptr) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[i][j] = __fadd_rn(v[i][j], dv[j]);
+        for (int j = 0; j < 8; ++j) v[i][j] = __fadd_rn(v[i][j], __fmul_rn(dv[j], a.scale));
         const uint4 rounded = bf16x8::from_float(v[i]);
         bf16x8::store(a.res + o + c * 8, rounded);
         bf16x8::to_float(rounded, v[i]);  // the norm reads the rounded stream
@@ -138,20 +140,22 @@ cudaError_t dispatch(const Args& a, cudaStream_t st) {
   if (nvec <= 64) return launch<64, 1>(a, st);
   if (nvec <= 128) return launch<128, 1>(a, st);
   if (nvec <= 256) return launch<256, 1>(a, st);
-  return launch<256, 2>(a, st);
+  if (nvec <= 512) return launch<256, 2>(a, st);
+  return launch<256, 4>(a, st);
 }
 
 }  // namespace
 
 // x (rows, groups, d) bf16 at element strides (sx_r, sx_g, 1), delta (rows,
-// groups, d) bf16 contiguous or null, w (d) f32 -> res (the same, bf16
-// contiguous; written only with a delta) and out (bf16 contiguous).
-// d a multiple of 8 up to 4096; x, delta, w, res and out 16-byte aligned,
+// groups, d) bf16 contiguous or null, w (d) f32, scale on delta -> res (the
+// same, bf16 contiguous; written only with a delta) and out (bf16
+// contiguous). d a multiple of 8 up to 8192; x, delta, w, res and out 16-byte aligned,
 // the strides multiples of 8. Launches on `device`, restoring the caller's
 // current device. Returns the launch's cudaError_t (then cudaGetLastError's).
 extern "C" int rho_add_rms_norm(const void* x, const void* delta, const void* w, void* res,
                                 void* out, long long rows, long long groups, long long sx_r,
-                                long long sx_g, int d, float eps, int device, void* stream) {
+                                long long sx_g, int d, float eps, float scale, int device,
+                                void* stream) {
   if (rows < 1 || groups < 1 || d < 8 || d > kMaxD || d % 8 != 0 || sx_r % 8 != 0 ||
       sx_g % 8 != 0 || !bf16x8::aligned16(x) || !bf16x8::aligned16(w) ||
       !bf16x8::aligned16(out) ||
@@ -162,6 +166,6 @@ extern "C" int rho_add_rms_norm(const void* x, const void* delta, const void* w,
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(delta),
                static_cast<const float*>(w), static_cast<__nv_bfloat16*>(res),
                static_cast<__nv_bfloat16*>(out), rows, groups, sx_r, sx_g, d,
-               1.0f / static_cast<float>(d), eps};
+               1.0f / static_cast<float>(d), eps, scale};
   return dispatch(a, static_cast<cudaStream_t>(stream));
 }

@@ -487,12 +487,13 @@ cudaError_t dispatch_d(int d, const PrefillArgs& a, int b, int hq, cudaStream_t 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).
 // strides (in elements): q_sb q_st q_sh  k_sb k_ss k_sh  v_sb v_ss v_sh
 // o_sb o_st o_sh  mask_sb; the head dimension and the mask's key dimension
-// are contiguous; o is contiguous. Launches on `device`, restoring the
-// caller's current device. Returns the cudaError_t of the launch.
+// are contiguous; o is contiguous. scale multiplies the scores; 0 means
+// 1 / sqrt(d). Launches on `device`, restoring the caller's current device.
+// Returns the cudaError_t of the launch.
 extern "C" int rho_prefill_attention(const void* q, const void* k, const void* v,
                                      const void* mask, void* o, int dtype, int b, int t, int s,
                                      int hq, int hkv, int d, const long long* st, int q_offset,
-                                     int causal, int device, void* stream) {
+                                     int causal, float scale, int device, void* stream) {
   if (b <= 0 || t <= 0 || s <= 0 || hkv <= 0 || hq % hkv != 0) return cudaErrorInvalidValue;
   int current = -1;
   cudaError_t rc = cudaGetDevice(&current);
@@ -500,7 +501,8 @@ extern "C" int rho_prefill_attention(const void* q, const void* k, const void* v
   if (current != device && (rc = cudaSetDevice(device)) != cudaSuccess) return rc;
   const PrefillArgs a{q, k, v, static_cast<const uint8_t*>(mask), o, t, s, hq / hkv, q_offset,
                       causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-                      st[9], st[10], st[11], st[12], 1.f / sqrtf(static_cast<float>(d))};
+                      st[9], st[10], st[11], st[12],
+                      scale > 0.f ? scale : 1.f / sqrtf(static_cast<float>(d))};
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     rc = dispatch_d<float>(d, a, b, hq, stream_);

@@ -391,13 +391,14 @@ extern "C" void rho_decode_workspace(int b, int hq, int hkv, int d, int splits,
 // mask_sb; the head dimension and the mask's key dimension are contiguous.
 // splits x slice covers S, each split non-empty, slice <= 64; work/tickets as
 // rho_decode_workspace says (tickets zeroed before the first launch; each
-// launch leaves them zero). Launches on `device`, restoring the caller's
-// current device. Returns the cudaError_t of the launch.
+// launch leaves them zero). scale multiplies the scores; 0 means
+// 1 / sqrt(d). Launches on `device`, restoring the caller's current device.
+// Returns the cudaError_t of the launch.
 extern "C" int rho_decode_attention(const void* q, const void* k, const void* v,
                                     const void* mask, void* o, void* work, void* tickets,
                                     int q_dtype, int kv_dtype, int b, int s, int hq, int hkv,
                                     int d, int splits, int slice, const long long* st,
-                                    int device, void* stream) {
+                                    float scale, int device, void* stream) {
   if (b <= 0 || s <= 0 || hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxG || d <= 0 ||
       d > kMaxD || slice <= 0 || slice > kMaxSlice || splits <= 0 ||
       static_cast<long long>(splits - 1) * slice >= s || static_cast<long long>(splits) * slice < s ||
@@ -410,7 +411,7 @@ extern "C" int rho_decode_attention(const void* q, const void* k, const void* v,
   DecodeArgs a{q, k, v, static_cast<const uint8_t*>(mask), o, static_cast<float*>(work),
                static_cast<unsigned*>(tickets), s, d, hq / hkv, slice, splits, 0,
                st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-               1.f / sqrtf(static_cast<float>(d))};
+               scale > 0.f ? scale : 1.f / sqrtf(static_cast<float>(d))};
   cudaStream_t stream_ = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0)
     rc = dispatch_kv<float>(kv_dtype, a, b, hkv, stream_);

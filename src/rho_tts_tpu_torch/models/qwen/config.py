@@ -198,6 +198,52 @@ PRESETS["lfm2-tiny"] = QwenTTSConfig(
 )
 
 
+#: granite-4.0-h-small's decoder (huggingface.co/ibm-granite/granite-4.0-h-small,
+#: config.json, model_type granitemoehybrid): 36 Mamba-2 and 4 attention layers
+GRANITE_LAYER_TYPES = tuple(
+    "full_attention" if i in (5, 15, 25, 35) else "mamba" for i in range(40))
+
+
+def _granite_talker(hidden, q_heads, kv_heads, layer_types, n_experts, experts_per_token,
+                    expert_ffn, shared_ffn, ssm_heads, ssm_head_dim, ssm_state, ssm_chunk,
+                    attn_scale, residual_multiplier, embedding_multiplier):
+    return TransformerConfig(
+        hidden=hidden, layers=len(layer_types), q_heads=q_heads, kv_heads=kv_heads,
+        head_dim=hidden // q_heads, ffn=0, rope_theta=10_000.0, rms_eps=1e-5,
+        dtype=torch.bfloat16, layer_types=layer_types, n_experts=n_experts,
+        experts_per_token=experts_per_token,
+        expert_ffn=expert_ffn, router="softmax", shared_ffn=shared_ffn, ssm_heads=ssm_heads,
+        ssm_head_dim=ssm_head_dim, ssm_state=ssm_state, ssm_conv=4, ssm_chunk=ssm_chunk,
+        rope=False, qk_norm=False, attn_scale=attn_scale, residual_multiplier=residual_multiplier,
+        embedding_multiplier=embedding_multiplier)
+
+
+# The state-space hybrid talker: granite-4.0-h-small's decoder at its
+# published sizes as the codec-LM's talker, in bf16 (the release's
+# precision), with the 1.7B's codec and heads: Mamba-2 mixers (128 heads of
+# 64, state 128) beside NoPE attention (softmax scale 1/128), 72 experts of
+# 768 (top 10, softmax router) and a shared SwiGLU of 1536 in every layer,
+# muP multipliers (residual 0.22, inputs x 12). Exact-name match only.
+PRESETS["granite-4.0-h-small"] = QwenTTSConfig(
+    name="granite-4.0-h-small",
+    talker=_granite_talker(4096, 32, 8, GRANITE_LAYER_TYPES, 72, 10, 768, 1536, 128, 64, 128,
+                           256, 0.0078125, 0.22, 12.0),
+    text_vocab=100352,
+)
+# Its shape at test size: mamba, mamba, attention, mamba, attention, mamba;
+# 8 experts of 32 (top 3) and a shared one of 32 in every layer; 8 Mamba
+# heads of 16, a state of 16, a scan chunk of 8. Exact-name match only.
+PRESETS["granite-tiny"] = QwenTTSConfig(
+    name="granite-tiny",
+    talker=_granite_talker(64, 4, 2, ("mamba", "mamba", "full_attention", "mamba",
+                                      "full_attention", "mamba"), 8, 3, 32, 32, 8, 16, 16, 8,
+                           0.0625, 0.22, 12.0),
+    codec=PRESETS["tiny"].codec,
+    text_vocab=512,
+    max_position_embeddings=512,
+)
+
+
 # Preset keys eligible for substring inference from checkpoint names.
 # "small"/"draft" (the speculative-demo pair) are deliberately excluded:
 # they are common words in real checkpoint paths (".../qwen-0.6b-draft")
@@ -211,7 +257,8 @@ def resolve_config(model_path: str) -> QwenTTSConfig:
 
     A local directory with a ``config.json`` may override the preset size;
     otherwise the preset is inferred from the name ("0.6B", "1.7B", "tiny")
-    or matched exactly ("small", "draft", "lfm2-8b-a1b", "lfm2-tiny").
+    or matched exactly ("small", "draft", "lfm2-8b-a1b", "lfm2-tiny",
+    "granite-4.0-h-small", "granite-tiny").
     """
     base = "1.7B"
     # Match against the basename only (a parent directory like

@@ -21,9 +21,12 @@ parameters carry the names of the JAX params tree (``talker.blocks.wqkv.q``,
   eagerly. The host checks cancellation and the lagged all-done flag
   between chunks only.
 * The talker is the dense GQA stack of the Qwen presets, or a hybrid one
-  (``lfm2-8b-a1b``: short convolutions, attention, routed experts), whose
-  short-convolution state lies in the step graph's arena beside the KV
-  caches and whose step counts the distinct experts of each expert layer;
+  (``lfm2-8b-a1b``: short convolutions, attention, routed experts;
+  ``granite-4.0-h-small``: Mamba-2 mixers, attention without RoPE, routed
+  experts beside a shared one), whose short-convolution or Mamba state lies
+  in the step graph's arena beside the KV caches (the talker's input
+  vectors scaled by its ``embedding_multiplier``) and whose step counts the
+  distinct experts of each expert layer;
   each ``qwen/decode_chunk`` span carries them as ``experts_touched``,
   fetched once a call (with a chunk's codes in ``stream_chunks``). It runs
   in bf16 on one device, without serving, speculation or meshes.
@@ -168,15 +171,23 @@ def prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
     return emb
 
 
+def _talker_input(cfg, emb: torch.Tensor) -> torch.Tensor:
+    """The talker's input vectors: ``emb`` times the talker's
+    ``embedding_multiplier`` (itself where that is 1)."""
+    m = cfg.talker.embedding_multiplier
+    return emb if m == 1.0 else emb * m
+
+
 def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_ids,
              spk_mask, rope_pos, attn_mask, cache_k, cache_v, key_valid, tp=None, sp_mesh=None,
-             conv_state=None):
+             conv_state=None, ssm_state=None):
     """Prompt-embedding assembly + prefill. Writes the caches in place.
 
     ``tp``: the mesh axis the weights are sharded over; ``sp_mesh``: a
     sequence-parallel prefill (``transformer.stack_forward``);
-    ``conv_state``: a hybrid talker's short-convolution state, zeroed, which
-    the prefill leaves holding the prompt's last positions. ``key_valid``,
+    ``conv_state`` / ``ssm_state``: a hybrid talker's short-convolution or
+    Mamba state, zeroed, which the prefill leaves holding the state after
+    the prompt's last position. ``key_valid``,
     zeroed, is set in place to the prompt's slots. Returns ``(logits (B, V)
     f32, cache_k, cache_v, key_valid)``, the caller's tensors.
     """
@@ -184,9 +195,10 @@ def _prefill(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask, spk_
     embeds = prompt_embeds(params, cfg, ids_slotted, text_mask, codes_slotted, code_mask,
                            spk_ids, spk_mask, attn_mask, tp)
     h, (ck, cv) = tfm.stack_forward(
-        params["talker"], cfg.talker, embeds, rope_pos,
+        params["talker"], cfg.talker, _talker_input(cfg, embeds), rope_pos,
         kv_caches=(cache_k, cache_v), cache_len=0, attn_mask=attn_mask,
         key_valid=key_valid, fused_prefill=True, sp_mesh=sp_mesh, tp=tp, conv_state=conv_state,
+        ssm_state=ssm_state,
     )
     key_valid[:, :p] = attn_mask
     logits = h[:, -1].float() @ params["lm_head"].float()
@@ -299,17 +311,17 @@ class _StepState:
 
 
 def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepState,
-                 top_k: int, tp=None, conv_state=None) -> None:
+                 top_k: int, tp=None, conv_state=None, ssm_state=None) -> None:
     """One AR decode step on the chunk's device state ``st``: embed the last
     frame, run the talker with its K/V written at slot ``slot0 + t``, sample
     the primary code (EOS floored while the step's gate is set), predict the
     residual codes, write the frame at step ``t`` of ``st.codes`` / ``st.dones``
     and advance ``t``. Caches and ``key_valid`` are updated in place; ``tp``
-    as :func:`_prefill`; ``conv_state`` (a hybrid talker's) is rolled in
-    place, and the distinct experts of each expert layer go to
+    as :func:`_prefill`; ``conv_state`` / ``ssm_state`` (a hybrid talker's)
+    advance in place, and the distinct experts of each expert layer go to
     ``st.touched`` at step ``t``. Capturable: it reads and writes only
-    ``st``, the caches, ``key_valid``, ``conv_state``, ``lm_head`` and the
-    weights."""
+    ``st``, the caches, ``key_valid``, the talker's states, ``lm_head`` and
+    the weights."""
     nq = cfg.codec.n_codebooks
     embs = params["audio_embed"]
     t = st.t.view(1)
@@ -319,10 +331,11 @@ def _decode_step(params, cfg, lm_head, cache_k, cache_v, key_valid, st: _StepSta
             emb = emb + embs[q][st.last_codes[:, q]]
     slot = st.slot0 + st.t
     h, _ = tfm.stack_forward(
-        params["talker"], cfg.talker, emb[:, None, :], (st.rope_base + st.t)[:, None],
+        params["talker"], cfg.talker, _talker_input(cfg, emb[:, None, :]),
+        (st.rope_base + st.t)[:, None],
         kv_caches=(cache_k, cache_v), cache_len=slot, attn_mask=None,
         key_valid=key_valid, tp=tp, uniform_slot=True, conv_state=conv_state,
-        expert_hits=st.hits,
+        expert_hits=st.hits, ssm_state=ssm_state,
     )
     if st.touched is not None:
         st.touched.index_copy_(0, t, st.hits.sum(dim=1, dtype=torch.int32)[None])
@@ -424,11 +437,15 @@ def _step_leaves(params) -> List[torch.Tensor]:
 def _arena_layout(cfg_local, b: int, s: int, kv_dtype) -> Tuple[Tuple[int, ...], List[int]]:
     """The shape of one KV cache of a key and the byte offsets of its two
     caches, its ``key_valid``, a hybrid talker's f32 short-convolution state
-    and the end in an arena (each 256-aligned)."""
+    or its f32 Mamba convolution and scan states, and the end in an arena
+    (each 256-aligned)."""
     shape = (cfg_local.attn_layers, b, s, cfg_local.kv_heads, cfg_local.head_dim)
     sizes = [math.prod(shape) * torch.empty((), dtype=kv_dtype).element_size()] * 2 + [b * s]
     if cfg_local.conv_layers:
         sizes.append(math.prod(_conv_shape(cfg_local, b)) * 4)
+    if cfg_local.mamba_layers:
+        sizes += [math.prod(tfm.ssm_conv_shape(cfg_local, b)) * 4,
+                  math.prod(tfm.ssm_scan_shape(cfg_local, b)) * 4]
     offsets = [0]
     for n in sizes:
         offsets.append(offsets[-1] + _round_up(n, 256))
@@ -444,8 +461,8 @@ class _StepGraph:
 
     The key is (rows, cache length, top_k, KV dtype, chunk steps) on one
     model, so the weights and the quantization are fixed. The KV caches,
-    ``key_valid`` and a hybrid talker's short-convolution state are views at
-    the start of the model's arena (:class:`_StepGraphs`), which the call
+    ``key_valid`` and a hybrid talker's short-convolution or Mamba states are
+    views at the start of the model's arena (:class:`_StepGraphs`), which the call
     holding them zeroes (:class:`_Decode`); the chunk's inputs go into
     ``state`` and the model's f32 ``lm_head`` before the replays. The graph
     is captured and replayed on its device's one decode stream
@@ -463,11 +480,15 @@ class _StepGraph:
             self.cache_k, self.cache_v = (arena[at[i]:at[i + 1]].view(kv_dtype)
                                           [:math.prod(shape)].view(shape) for i in (0, 1))
             self.key_valid = arena[at[2]:at[2] + b * s].view(torch.bool).view(b, s)
-            self.conv_state = None
+            f32 = [arena[at[i]:at[i + 1]].view(torch.float32) for i in range(3, len(at) - 1)]
+            self.conv_state = self.ssm_state = None
             if cfg_local.conv_layers:
                 conv = _conv_shape(cfg_local, b)
-                self.conv_state = (arena[at[3]:at[4]].view(torch.float32)[:math.prod(conv)]
-                                   .view(conv))
+                self.conv_state = f32[0][:math.prod(conv)].view(conv)
+            if cfg_local.mamba_layers:
+                shapes = tfm.ssm_conv_shape(cfg_local, b), tfm.ssm_scan_shape(cfg_local, b)
+                self.ssm_state = tuple(buf[:math.prod(shp)].view(shp) for buf, shp in
+                                       zip(f32[bool(cfg_local.conv_layers):], shapes))
             self.state = _StepState(b, nq, steps, top_k, arena.device, cfg_local.moe_layers,
                                     cfg_local.n_experts)
         self.lm_head = lm_head
@@ -558,7 +579,7 @@ class _Decode:
 
     Made by :meth:`QwenTTSModel._decoding` for ``b`` local rows over ``s``
     cache slots. It holds the KV caches, ``key_valid`` and a hybrid talker's
-    short-convolution state, zeroed; the steps' :class:`_StepState`; the f32
+    short-convolution or Mamba states, zeroed; the steps' :class:`_StepState`; the f32
     ``lm_head``, copied once a call (state and head only with a ``top_k``);
     and ``graph``, the model's :class:`_StepGraph` for the key, whose
     buffers these then are, or None: new buffers, and the steps run eagerly.
@@ -575,6 +596,7 @@ class _Decode:
             self.cache_k, self.cache_v = model._shard_kv(b, s)
             self.key_valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
             self.conv_state = tfm.make_conv_state(cfg.talker, b, dev)
+            self.ssm_state = tfm.make_ssm_state(cfg.talker, b, dev)
             self.state = None if top_k is None else _StepState(
                 b, cfg.codec.n_codebooks, steps, top_k, dev, cfg.talker.moe_layers,
                 cfg.talker.n_experts)
@@ -583,20 +605,26 @@ class _Decode:
         else:
             self.cache_k, self.cache_v = graph.cache_k, graph.cache_v
             self.key_valid, self.conv_state = graph.key_valid, graph.conv_state
-            for buf in (self.cache_k, self.cache_v, self.key_valid, self.conv_state):
+            self.ssm_state = graph.ssm_state
+            for buf in (self.cache_k, self.cache_v, self.key_valid, self.conv_state,
+                        *(self.ssm_state or ())):
                 if buf is not None:
                     buf.zero_()
             self.state, self.lm_head = graph.state, graph.lm_head.copy_(self.params["lm_head"])
 
     def prefill(self, a: Dict[str, torch.Tensor], sp_mesh=None) -> torch.Tensor:
         """Prefill the uploaded prompt arrays ``a`` into the call's buffers
-        (:func:`_prefill`); returns the last position's logits ``(B, V)`` f32."""
-        with profiling.stage("qwen/prefill"):
+        (:func:`_prefill`); returns the last position's logits ``(B, V)`` f32.
+        A talker with Mamba layers puts its scan's chunk count on the
+        ``qwen/prefill`` span (``ssm_chunks``)."""
+        talker, p = self.cfg.talker, a["attn_mask"].shape[1]
+        attrs = {"ssm_chunks": -(-p // talker.ssm_chunk)} if talker.mamba_layers else {}
+        with profiling.stage("qwen/prefill", **attrs):
             return _prefill(self.params, self.cfg, a["ids_slotted"], a["text_mask"],
                             a["codes_slotted"], a["code_mask"], a["spk_ids"], a["spk_mask"],
                             a["rope_pos"], a["attn_mask"], self.cache_k, self.cache_v,
                             self.key_valid, tp=self.tp, sp_mesh=sp_mesh,
-                            conv_state=self.conv_state)[0]
+                            conv_state=self.conv_state, ssm_state=self.ssm_state)[0]
 
     def chunks(self, a: Dict[str, torch.Tensor], seeds, temperature, min_frames: int,
                cancel_check=None, sp_mesh=None):
@@ -677,7 +705,8 @@ class _Decode:
 
     def _step(self) -> None:
         _decode_step(self.params, self.cfg, self.lm_head, self.cache_k, self.cache_v,
-                     self.key_valid, self.state, self.top_k, self.tp, self.conv_state)
+                     self.key_valid, self.state, self.top_k, self.tp, self.conv_state,
+                     self.ssm_state)
 
 
 def _decode_slots(max_chars: int, max_frames: Optional[int]) -> int:

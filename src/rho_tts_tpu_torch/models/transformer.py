@@ -27,14 +27,20 @@ residual add before it (``ops.cuda.add_rms_norm``), RoPE on q and k
 layers hand their output to the next norm as a pending ``delta``. On the
 CPU, in f32 and with grad mode on the same steps run as plain PyTorch chains.
 
-A hybrid talker (``TransformerConfig.layer_types`` / ``n_experts``: LFM2-MoE)
-keeps a weight stack per kind of layer and runs them in the schedule's
-order (:func:`_hybrid_forward`): gated short convolutions over an f32 state
-``(Lc, B, K - 1, H)`` rolled in place, GQA attention with QK-norm over a KV
-cache of the attention layers alone, a dense SwiGLU in the first
-``dense_layers`` and routed experts after (an f32 sigmoid router with a bias
-on the choice; a decode step runs ``ops.cuda.moe_experts``, a prefill groups
-its tokens by expert). It has the cached forward only.
+A hybrid talker (``TransformerConfig.layer_types`` / ``n_experts``: LFM2-MoE,
+granite-4.0-h) keeps a weight stack per kind of layer and runs them in the
+schedule's order (:func:`_hybrid_forward`): gated short convolutions over an
+f32 state ``(Lc, B, K - 1, H)`` rolled in place, Mamba-2 mixers over an f32
+conv state and SSM state (:func:`make_ssm_state`; a prefill runs the chunked
+scan in plain PyTorch, a decode step ``ops.cuda.ssm_step``), GQA attention
+(with QK-norm, or without RoPE at a configured softmax scale) over a KV cache
+of the attention layers alone, a dense SwiGLU in the first ``dense_layers``
+and routed experts after (an f32 sigmoid router with a bias on the choice,
+or a softmax over the top-k logits; a decode step runs
+``ops.cuda.moe_experts``, a prefill groups its tokens by expert), with a
+shared SwiGLU expert beside them where configured. Each sublayer's output
+may be scaled before the residual add (``residual_multiplier``). It has the
+cached forward only.
 
 The cache-less forward (``kv_caches=None``: training and distillation) is
 plain masked causal attention too, as JAX's is, and differentiable; the
@@ -70,6 +76,7 @@ from ..ops.cuda import silu_mul as _sm
 from ..ops.cuda.attention import fused_gqa_attention, sp_fused_gqa_attention
 from ..ops.cuda.decode_attention import decode_gqa_attention
 from ..ops.cuda.moe_experts import grouped_experts, moe_experts
+from ..ops.cuda.ssm_step import ssm_step
 from ..parallel.collectives import all_gather, copy_to_model, reduce_from_model
 from ..utils import profiling
 from .quantization import matmul as qmm
@@ -100,12 +107,43 @@ class TransformerConfig:
     experts_per_token: int = 0
     expert_ffn: int = 0
     dense_layers: int = 0
+    # How the experts are chosen: "sigmoid" (above) or "softmax" (the top-k
+    # logits, their softmax the weights; no bias). ``shared_ffn`` > 0 adds a
+    # shared SwiGLU expert of that width to every expert layer's output.
+    router: str = "sigmoid"
+    shared_ffn: int = 0
+    # Mamba-2 mixers (layer kind "mamba"): ``ssm_heads`` heads of
+    # ``ssm_head_dim`` channels, a state of ``ssm_state`` per channel, one
+    # group of B and C, a causal depthwise convolution of ``ssm_conv`` taps
+    # with a bias; a prefill scans in chunks of ``ssm_chunk`` positions.
+    ssm_heads: int = 0
+    ssm_head_dim: int = 0
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # Attention without rotary embeddings (``rope`` False), without a hybrid
+    # talker's QK-norm (``qk_norm`` False: its init draws no q_norm / k_norm,
+    # and the block normalises where its weights hold them), a softmax scale
+    # (0: 1 / sqrt(head_dim)), each sublayer's output times
+    # ``residual_multiplier`` before its residual add, and the talker's input
+    # vectors times ``embedding_multiplier`` (the defaults change nothing).
+    rope: bool = True
+    qk_norm: bool = True
+    attn_scale: float = 0.0
+    residual_multiplier: float = 1.0
+    embedding_multiplier: float = 1.0
 
     def __post_init__(self):
         if self.layer_types and (len(self.layer_types) != self.layers or not set(
-                self.layer_types) <= {"conv", "full_attention"}):
+                self.layer_types) <= {"conv", "full_attention", "mamba"}):
             raise ValueError(f"layer_types must give each of the {self.layers} layers "
-                             f"'conv' or 'full_attention', got {self.layer_types}")
+                             f"'conv', 'mamba' or 'full_attention', got {self.layer_types}")
+        if self.router not in ("sigmoid", "softmax"):
+            raise ValueError(f"router must be 'sigmoid' or 'softmax', got {self.router!r}")
+        if self.mamba_layers and min(self.ssm_heads, self.ssm_head_dim, self.ssm_state,
+                                     self.ssm_conv - 1, self.ssm_chunk) < 1:
+            raise ValueError("a talker with mamba layers needs ssm_heads, ssm_head_dim, "
+                             "ssm_state, ssm_chunk and ssm_conv > 1")
 
     @property
     def schedule(self) -> Tuple[str, ...]:
@@ -122,6 +160,20 @@ class TransformerConfig:
         return self.schedule.count("conv")
 
     @property
+    def mamba_layers(self) -> int:
+        return self.schedule.count("mamba")
+
+    @property
+    def ssm_inner(self) -> int:
+        """The Mamba mixer's channels: heads x head_dim."""
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def ssm_conv_dim(self) -> int:
+        """Channels of the Mamba convolution: x, then B and C (one group)."""
+        return self.ssm_inner + 2 * self.ssm_state
+
+    @property
     def moe_layers(self) -> int:
         return self.layers - self.dense_layers if self.n_experts else 0
 
@@ -135,8 +187,11 @@ class TransformerConfig:
         """The talker's kind, as errors name it."""
         if not self.hybrid:
             return "dense GQA"
-        return (f"hybrid ({self.conv_layers} short-convolution + {self.attn_layers} attention "
-                f"layers, {self.n_experts} routed experts in {self.moe_layers})")
+        mixers = (f"{self.mamba_layers} state-space (Mamba-2)" if self.mamba_layers
+                  else f"{self.conv_layers} short-convolution")
+        shared = ", a shared expert" if self.shared_ffn else ""
+        return (f"hybrid ({mixers} + {self.attn_layers} attention layers, {self.n_experts} "
+                f"routed experts in {self.moe_layers}{shared})")
 
 
 #: taps of the hybrid talker's causal depthwise convolution (LFM2's ``conv_L_cache``)
@@ -147,9 +202,9 @@ def require_dense(cfg: TransformerConfig, what: str) -> None:
     """Raise ``NotImplementedError`` where ``what`` meets a hybrid talker."""
     if cfg.hybrid:
         raise NotImplementedError(
-            f"{what} is not supported for a talker with short-convolution or expert layers: "
-            f"this one is {cfg.kind}. It runs in bf16 through synthesize(), generate_codes() "
-            f"and stream_chunks() on one device")
+            f"{what} is not supported for a talker with short-convolution, state-space or "
+            f"expert layers: this one is {cfg.kind}. It runs in bf16 through synthesize(), "
+            f"generate_codes() and stream_chunks() on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +212,23 @@ def require_dense(cfg: TransformerConfig, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: values above which a stacked weight is drawn a leading slice at a time
+_DRAW_WHOLE = 1 << 32
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    """N(0, 1/in_dim) weights of shape (..., in, out), drawn in f32."""
+    """N(0, 1/in_dim) weights of shape (..., in, out), drawn in f32 (a
+    stack of more than ``_DRAW_WHOLE`` values a leading slice at a time, so
+    that its f32 draw never lies beside it whole)."""
     scale = 1.0 / np.sqrt(shape[-2])
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    if int(np.prod(shape)) <= _DRAW_WHOLE:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (w * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out:
+        part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                               device=device) * scale)
+    return out
 
 
 def init_stack(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
@@ -188,15 +255,22 @@ def init_hybrid(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
     """Random weights of a hybrid talker, one stack per kind of layer.
 
     ``attn`` ``(La, ...)``: ``attn_norm``, ``wqkv``, ``q_norm`` / ``k_norm``
-    (``(La, head_dim)``), ``wo``. ``conv`` ``(Lc, ...)``:
+    (``(La, head_dim)``; where ``qk_norm``), ``wo``. ``conv`` ``(Lc, ...)``:
     ``conv_norm``, ``in_proj`` ``(H, 3H)`` (the B, C and x~ projections),
     ``conv_w`` ``(H, CONV_TAPS)`` depthwise taps, ``out_proj``. ``ffn``
     (the dense layers) ``mlp_norm``, ``w_gate`` / ``w_up`` / ``w_down`` of
     ``ffn``; ``moe`` (the expert layers) ``mlp_norm``, ``router`` ``(H, E)``,
     ``expert_bias`` ``(E,)`` f32 (zero, as a release starts it), and
     ``w_gate`` / ``w_up`` ``(E, H, expert_ffn)``, ``w_down``
-    ``(E, expert_ffn, H)``. Norms at one; the i-th layer of a kind is the
-    i-th of the schedule's layers of that kind.
+    ``(E, expert_ffn, H)``; a softmax router has no ``expert_bias``, and a
+    shared expert adds ``shared_w_gate`` / ``shared_w_up`` ``(H, shared_ffn)``
+    and ``shared_w_down``. ``mamba`` ``(Lm, ...)``: ``ssm_norm``, ``in_proj``
+    ``(H, 2 di + 2 N + heads)`` (z, x, B, C, dt), ``conv_w`` ``(conv_dim,
+    ssm_conv)`` N(0, 1 / taps) and ``conv_b`` (zero), ``dt_bias`` (the
+    softplus inverse of exp U[log 1e-3, log 1e-1]), ``A_log`` (log U[1, 16]),
+    ``D`` (one), ``gate_norm`` ``(di,)``, ``out_proj`` ``(di, H)``: Mamba-2's
+    initialisation. Norms at one; the i-th layer of a kind is the i-th of the
+    schedule's layers of that kind.
     """
     h, dt = cfg.hidden, cfg.dtype
     la, lc = cfg.attn_layers, cfg.conv_layers
@@ -210,23 +284,56 @@ def init_hybrid(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
     out: Params = {"final_norm": ones(h)}
     if la:
         qkv_out = (cfg.q_heads + 2 * cfg.kv_heads) * cfg.head_dim
-        out["attn"] = {"attn_norm": ones(la, h), "wqkv": dense(la, h, qkv_out),
-                       "q_norm": ones(la, cfg.head_dim), "k_norm": ones(la, cfg.head_dim),
-                       "wo": dense(la, cfg.q_heads * cfg.head_dim, h)}
+        out["attn"] = {"attn_norm": ones(la, h), "wqkv": dense(la, h, qkv_out)}
+        if cfg.qk_norm:
+            out["attn"].update(q_norm=ones(la, cfg.head_dim), k_norm=ones(la, cfg.head_dim))
+        out["attn"]["wo"] = dense(la, cfg.q_heads * cfg.head_dim, h)
     if lc:
         out["conv"] = {"conv_norm": ones(lc, h), "in_proj": dense(lc, h, 3 * h),
                        # N(0, 1 / taps): drawn (Lc, K, H), stored (Lc, H, K)
                        "conv_w": dense(lc, CONV_TAPS, h).transpose(1, 2).contiguous(),
                        "out_proj": dense(lc, h, h)}
+    if cfg.mamba_layers:
+        out["mamba"] = init_mamba(gen, cfg, device)
     if ld:
         out["ffn"] = {"mlp_norm": ones(ld, h), "w_gate": dense(ld, h, cfg.ffn),
                       "w_up": dense(ld, h, cfg.ffn), "w_down": dense(ld, cfg.ffn, h)}
     if lm:
-        out["moe"] = {"mlp_norm": ones(lm, h), "router": dense(lm, h, e),
-                      "expert_bias": torch.zeros((lm, e), dtype=torch.float32, device=device),
-                      "w_gate": dense(lm, e, h, fe), "w_up": dense(lm, e, h, fe),
-                      "w_down": dense(lm, e, fe, h)}
+        out["moe"] = {"mlp_norm": ones(lm, h), "router": dense(lm, h, e)}
+        if cfg.router == "sigmoid":
+            out["moe"]["expert_bias"] = torch.zeros((lm, e), dtype=torch.float32, device=device)
+        out["moe"].update(w_gate=dense(lm, e, h, fe), w_up=dense(lm, e, h, fe),
+                          w_down=dense(lm, e, fe, h))
+        if cfg.shared_ffn:
+            fs = cfg.shared_ffn
+            out["moe"].update(shared_w_gate=dense(lm, h, fs), shared_w_up=dense(lm, h, fs),
+                              shared_w_down=dense(lm, fs, h))
     return out
+
+
+def init_mamba(gen: torch.Generator, cfg: TransformerConfig, device) -> Params:
+    """Random weights of the Mamba-2 layers (:func:`init_hybrid`'s ``mamba``)."""
+    lm, h, nh = cfg.mamba_layers, cfg.hidden, cfg.ssm_heads
+    di, cd = cfg.ssm_inner, cfg.ssm_conv_dim
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def uniform(lo, hi):
+        return torch.rand((lm, nh), generator=gen, **f32) * (hi - lo) + lo
+
+    dt0 = torch.exp(uniform(np.log(1e-3), np.log(1e-1)))
+    return {
+        "ssm_norm": torch.ones((lm, h), **f32),
+        "in_proj": _dense_init(gen, (lm, h, 2 * di + 2 * cfg.ssm_state + nh), cfg.dtype, device),
+        # N(0, 1 / taps): drawn (Lm, K, C), stored (Lm, C, K)
+        "conv_w": _dense_init(gen, (lm, cfg.ssm_conv, cd), cfg.dtype,
+                              device).transpose(1, 2).contiguous(),
+        "conv_b": torch.zeros((lm, cd), dtype=cfg.dtype, device=device),
+        "dt_bias": dt0 + torch.log(-torch.expm1(-dt0)),  # softplus(dt_bias) = dt0
+        "A_log": torch.log(uniform(1.0, 16.0)),
+        "D": torch.ones((lm, nh), **f32),
+        "gate_norm": torch.ones((lm, di), **f32),
+        "out_proj": _dense_init(gen, (lm, di, h), cfg.dtype, device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +358,13 @@ def _kernels_take(x: torch.Tensor) -> bool:
 
 
 def _add_norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.Tensor,
-              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The residual stream ``x + delta`` (x where ``delta`` is None) and its
-    RMSNorm: ``(x, normed)``. One ``add_rms_norm`` launch where
+              eps: float, scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual stream ``x + scale * delta`` (x where ``delta`` is None)
+    and its RMSNorm: ``(x, normed)``. One ``add_rms_norm`` launch where
     :func:`_kernels_take`, else the add and :func:`rms_norm`."""
     if _kernels_take(x):
-        return _arn.add_rms_norm(x, delta, weight, eps)
-    return _arn.reference_add_rms_norm(x, delta, weight, eps)
+        return _arn.add_rms_norm(x, delta, weight, eps, scale)
+    return _arn.reference_add_rms_norm(x, delta, weight, eps, scale)
 
 
 def _rope(q: torch.Tensor, k: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -328,14 +435,21 @@ def _qkv(params: Params, cfg: TransformerConfig, x: torch.Tensor, delta, rope, t
     ``(x, q, k, v)``, x with ``delta`` added. ``tp_grad``: the
     differentiable TP forward's axis (``copy_to_model`` before the
     column-parallel ``wqkv``)."""
-    x, h = _add_norm(x, delta, params["attn_norm"], cfg.rms_eps)
+    x, h = _add_norm(x, delta, params["attn_norm"], cfg.rms_eps, cfg.residual_multiplier)
     qkv = qmm(copy_to_model(h, tp_grad), params["wqkv"])
     q, k, v = _split_qkv(qkv, cfg)
     if "q_norm" in params:  # QK-norm (the hybrid talker): each head, before RoPE
         _, q = _add_norm(q, None, params["q_norm"], cfg.rms_eps)
         _, k = _add_norm(k, None, params["k_norm"], cfg.rms_eps)
-    q, k = _rope(q, k, rope)
+    if cfg.rope:
+        q, k = _rope(q, k, rope)
     return x, q, k, v
+
+
+def _softmax_scale(cfg: TransformerConfig) -> Optional[float]:
+    """The attention's softmax scale where the config sets one, else None
+    (the kernels' and the plain versions' own 1 / sqrt(head_dim))."""
+    return cfg.attn_scale or None
 
 
 def _attn_out(params: Params, cfg: TransformerConfig, x: torch.Tensor,
@@ -355,7 +469,7 @@ def _mlp(params: Params, cfg: TransformerConfig, x: torch.Tensor, delta, tp=None
     ``tp`` the row-parallel ``w_down`` sums over the axis in place; under
     ``tp_grad`` through the differentiable pair (``copy_to_model`` before
     ``w_gate`` / ``w_up``, ``reduce_from_model`` after ``w_down``)."""
-    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps)
+    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps, cfg.residual_multiplier)
     h = copy_to_model(h, tp_grad)
     act = _swiglu(qmm(h, params["w_gate"]), qmm(h, params["w_up"]))
     return x, reduce_from_model(qmm(act, params["w_down"], reduce=tp), tp_grad)
@@ -365,7 +479,7 @@ def _masked_attention(q, k, v, mask: torch.Tensor, cfg: TransformerConfig) -> to
     """Plain GQA attention under a boolean key mask, JAX's einsum branch:
     f32 scores and mix, masked scores filled with -1e30 (finite: a row with
     every key masked averages all of them instead of turning NaN)."""
-    scores = _gqa_scores(q, k) * (1.0 / np.sqrt(cfg.head_dim))
+    scores = _gqa_scores(q, k) * (cfg.attn_scale or (1.0 / np.sqrt(cfg.head_dim)))
     probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
     return _gqa_mix(probs, v)
 
@@ -554,9 +668,10 @@ def _attention_cached(params, cfg, x, delta, rope, ck_all, cv_all, layer, slot, 
         if sp is not None:
             attn = sp_fused_gqa_attention(q, k, v, pmask, sp, causal=True)
         else:
-            attn = fused_gqa_attention(q, k, v, pmask, causal=True)
+            attn = fused_gqa_attention(q, k, v, pmask, causal=True, scale=_softmax_scale(cfg))
     elif t == 1:
-        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask)
+        attn = decode_gqa_attention(q, ck_all[layer], cv_all[layer], mask,
+                                    scale=_softmax_scale(cfg))
     else:
         # T > 1 over a used cache (speculative verify): JAX computes it as
         # plain masked attention (its einsum branch), and so does the port.
@@ -638,6 +753,7 @@ def stack_forward(
     uniform_slot: bool = False,
     conv_state: Optional[torch.Tensor] = None,
     expert_hits: Optional[torch.Tensor] = None,
+    ssm_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Run the block stack, over the stacked caches or without them.
 
@@ -681,9 +797,11 @@ def stack_forward(
     A hybrid talker (``cfg.hybrid``) runs :func:`_hybrid_forward`: its KV
     caches hold the attention layers only, ``conv_state`` ``(Lc, B,
     CONV_TAPS - 1, H)`` f32 is the short convolutions' state (updated in
-    place), and ``expert_hits`` ``(Lm, E)`` int32, if given, receives 1 for
-    each expert that some token chose in each expert layer, else 0. It has no cache-less, TP or SP
-    forward (``NotImplementedError``).
+    place), ``ssm_state`` the Mamba layers' ``(conv, ssm)`` state
+    (:func:`make_ssm_state`, updated in place), and ``expert_hits`` ``(Lm, E)``
+    int32, if given, receives 1 for each expert that some token chose in each
+    expert layer, else 0. It has no cache-less, TP or SP forward
+    (``NotImplementedError``).
     """
     if kv_window is not None:
         raise NotImplementedError(
@@ -695,7 +813,7 @@ def stack_forward(
                           else "a tensor- or sequence-parallel forward")
         return _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask,
                                key_valid, fused_prefill, slot_causal, block_causal, uniform_slot,
-                               conv_state, expert_hits)
+                               conv_state, expert_hits, ssm_state)
     blocks = params["blocks"]
     cfg = local_config(cfg, tp)
     sp = None
@@ -725,7 +843,7 @@ def stack_forward(
             x, delta, (k, v) = _block_cacheless(lp, cfg, x, delta, rope, mask, tp)
             ks.append(k)
             vs.append(v)
-        _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps)
+        _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps, cfg.residual_multiplier)
         return x, (torch.stack(ks), torch.stack(vs))
 
     ck_all, cv_all = kv_caches
@@ -735,7 +853,7 @@ def stack_forward(
         lp = {name: w[layer] for name, w in per_layer.items()}
         x, delta = _block_forward_cached(lp, cfg, x, delta, rope, ck_all, cv_all, layer, slot,
                                          attn_mask, mask, tp, sp)
-    _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps)
+    _, x = _add_norm(x, delta, params["final_norm"], cfg.rms_eps, cfg.residual_multiplier)
     if sp is not None:
         x = all_gather(x, 1, sp)
     return x, (ck_all, cv_all)
@@ -773,20 +891,24 @@ def _slot_and_mask(x, s, cache_len, attn_mask, key_valid, fused_prefill, slot_ca
 
 def _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask, key_valid,
                     fused_prefill, slot_causal, block_causal, uniform_slot, conv_state,
-                    expert_hits):
+                    expert_hits, ssm_state=None):
     """The cached forward of a hybrid talker, layer by layer as ``cfg.schedule``
-    orders them: ``x + op(norm(x))`` with ``op`` the attention (its own KV
-    cache layer) or the short convolution (its own ``conv_state`` layer),
-    then ``+ ffn(norm(x))`` with ``ffn`` the dense SwiGLU (layers under
-    ``dense_layers``) or the routed experts; then the final norm."""
+    orders them: ``x + m * op(norm(x))`` with ``op`` the attention (its own KV
+    cache layer), the short convolution (its own ``conv_state`` layer) or the
+    Mamba-2 mixer (its own ``ssm_state`` layers), then ``+ m * ffn(norm(x))``
+    with ``ffn`` the dense SwiGLU (layers under ``dense_layers``) or the
+    routed experts (and the shared one); then the final norm. ``m`` is
+    ``cfg.residual_multiplier``."""
     if cfg.conv_layers and conv_state is None:
         raise ValueError(f"a {cfg.kind} talker needs conv_state")
+    if cfg.mamba_layers and ssm_state is None:
+        raise ValueError(f"a {cfg.kind} talker needs ssm_state")
     ck_all, cv_all = kv_caches
     slot, mask = _slot_and_mask(x, ck_all.shape[2], cache_len, attn_mask, key_valid,
                                 fused_prefill, slot_causal, block_causal, uniform_slot)
-    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = _rope_tables(positions, cfg.head_dim, cfg.rope_theta) if cfg.rope else None
     stacks = {kind: {name: _unbind(w) for name, w in params[kind].items()}
-              for kind in ("attn", "conv", "ffn", "moe") if kind in params}
+              for kind in ("attn", "conv", "mamba", "ffn", "moe") if kind in params}
     seen = collections.Counter()
 
     def take(kind):
@@ -801,6 +923,11 @@ def _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask, 
             lp, c = take("conv")
             with profiling.region("talker/conv"):
                 x, delta = _conv_block(lp, cfg, x, delta, conv_state[c], attn_mask)
+        elif kind == "mamba":
+            lp, c = take("mamba")
+            with profiling.region("talker/mamba"):
+                x, h = _add_norm(x, delta, lp["ssm_norm"], cfg.rms_eps, cfg.residual_multiplier)
+                delta = _mamba_mixer(lp, cfg, h, ssm_state[0][c], ssm_state[1][c], attn_mask)
         else:
             lp, a = take("attn")
             with profiling.region("talker/attention"):
@@ -815,57 +942,197 @@ def _hybrid_forward(params, cfg, x, positions, kv_caches, cache_len, attn_mask, 
             lp, _ = take("ffn")
             with profiling.region("talker/mlp"):
                 x, delta = _mlp(lp, cfg, x, delta)
-    return _add_norm(x, delta, params["final_norm"], cfg.rms_eps)[1], (ck_all, cv_all)
+    normed = _add_norm(x, delta, params["final_norm"], cfg.rms_eps, cfg.residual_multiplier)[1]
+    return normed, (ck_all, cv_all)
+
+
+def _causal_conv(state: torch.Tensor, u: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The causal depthwise convolution of ``u`` ``(B, T, C)`` f32 with taps
+    ``w`` ``(C, K)`` (tap i on position ``t - (K - 1) + i``) and an optional
+    ``bias``, over ``state`` ``(B, K - 1, C)`` f32, the inputs of the K - 1
+    positions before ``u``, which is replaced by the last K - 1 of this call
+    (in place). Returns ``(B, T, C)`` f32."""
+    taps = w.shape[-1]
+    full = torch.cat([state, u], dim=1)  # (B, K - 1 + T, C)
+    out = (full.unfold(1, taps, 1) * w).sum(dim=-1)  # f32: bf16 taps promote in the product
+    if bias is not None:
+        out = out + bias
+    state.copy_(full[:, -(taps - 1):])
+    return out
 
 
 def _conv_block(params, cfg, x, delta, state, attn_mask):
     """The residual add, then the gated short convolution: ``B, C, x~ =
     in_proj(norm(x))``, ``u = B * x~``, ``y = C * conv(u)`` with ``conv``
-    causal and depthwise over ``CONV_TAPS`` taps, ``(x, out_proj(y))`` (the
-    stream and the sublayer's delta). ``state`` ``(B, K - 1, H)`` f32
-    holds the ``u`` of the K - 1 positions before ``x`` and is replaced by the
-    last K - 1 of this call (in place). ``u`` is 0 where ``attn_mask`` is
-    False, so left padding never reaches a real token. f32 from ``u`` to
-    ``y``."""
+    causal and depthwise over ``CONV_TAPS`` taps (:func:`_causal_conv`),
+    ``(x, out_proj(y))`` (the stream and the sublayer's delta). ``state``
+    ``(B, K - 1, H)`` f32 holds the ``u`` of the K - 1 positions before ``x``
+    and is replaced by the last K - 1 of this call (in place). ``u`` is 0
+    where ``attn_mask`` is False, so left padding never reaches a real token.
+    f32 from ``u`` to ``y``."""
     hd = cfg.hidden
-    x, h = _add_norm(x, delta, params["conv_norm"], cfg.rms_eps)
+    x, h = _add_norm(x, delta, params["conv_norm"], cfg.rms_eps, cfg.residual_multiplier)
     bcx = qmm(h, params["in_proj"])
     u = bcx[..., :hd].float() * bcx[..., 2 * hd:]
     if attn_mask is not None:
         u = u.masked_fill(~attn_mask.bool()[..., None], 0.0)
-    full = torch.cat([state, u], dim=1)  # (B, K - 1 + T, H)
-    taps = params["conv_w"].shape[-1]
-    conv = (full.unfold(1, taps, 1) * params["conv_w"]).sum(dim=-1)  # (B, T, H)
-    state.copy_(full[:, -(taps - 1):])
+    conv = _causal_conv(state, u, params["conv_w"])
     y = (bcx[..., hd:2 * hd].float() * conv).to(x.dtype)
     return x, qmm(y, params["out_proj"])
 
 
+# ---------------------------------------------------------------------------
+# The Mamba-2 mixer
+# ---------------------------------------------------------------------------
+
+
+def _mamba_mixer(params, cfg: TransformerConfig, h: torch.Tensor, conv_state: torch.Tensor,
+                 ssm_state: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The Mamba-2 mixer of the normed stream ``h`` ``(B, T, H)``: its output
+    ``(B, T, H)``, the sublayer's delta. ``z, xBC, dt = split(in_proj(h))``;
+    ``xBC = silu(conv(xBC) + b)``; ``x, B, C = split(xBC)``; per head
+    ``S <- exp(dt A) S + dt x B^T``, ``y = S C + D x``; ``out_proj(rms(y *
+    silu(z)) * w)``. ``conv_state`` ``(B, K - 1, conv_dim)`` and
+    ``ssm_state`` ``(B, heads, head_dim, N)``, f32, are advanced in place. A
+    decode step (T == 1) runs ``ops.cuda.ssm_step`` (one launch); a prefill
+    :func:`ssm_prefill`, the chunked scan in plain PyTorch. Where
+    ``attn_mask`` is False (left padding) the step is no step: xBC is zero
+    before and after the convolution and dt is zero, so the states stay as
+    they were."""
+    b, t, _ = h.shape
+    zxbcdt = qmm(h, params["in_proj"])
+    if t == 1 and attn_mask is None:
+        y = ssm_step(zxbcdt[:, 0], conv_state, ssm_state, params["conv_w"], params["conv_b"],
+                     params["dt_bias"], params["A_log"], params["D"])[:, None]
+    else:
+        y = ssm_prefill(zxbcdt, conv_state, ssm_state, params, cfg, attn_mask)
+    _, y = _add_norm(y, None, params["gate_norm"], cfg.rms_eps)
+    return qmm(y, params["out_proj"])
+
+
+def ssm_prefill(zxbcdt: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                params, cfg: TransformerConfig,
+                attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The Mamba-2 mixer's convolution and scan over ``zxbcdt`` ``(B, T, W)``
+    (the ``in_proj`` output), in f32: returns ``y * silu(z)`` ``(B, T, di)``
+    in ``zxbcdt``'s dtype, ``conv_state`` and ``ssm_state`` advanced past the
+    T positions in place. The scan is :func:`ssd_scan` in chunks of
+    ``cfg.ssm_chunk``."""
+    b, t, _ = zxbcdt.shape
+    di, n, nh, p = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc, dt = zxbcdt.split([di, di + 2 * n, nh], dim=-1)
+    xbc = xbc.float()
+    keep = None if attn_mask is None else attn_mask.bool()[..., None]
+    if keep is not None:
+        xbc = xbc.masked_fill(~keep, 0.0)
+    xbc = torch.nn.functional.silu(_causal_conv(conv_state, xbc, params["conv_w"],
+                                                params["conv_b"]))
+    dt = torch.nn.functional.softplus(dt.float() + params["dt_bias"])
+    if keep is not None:
+        xbc = xbc.masked_fill(~keep, 0.0)
+        dt = dt.masked_fill(~keep, 0.0)
+    x, bm, cm = xbc.split([di, n, n], dim=-1)
+    x = x.reshape(b, t, nh, p)
+    y = ssd_scan(x, dt, -torch.exp(params["A_log"].float()), bm, cm, cfg.ssm_chunk, ssm_state)
+    y = y + params["D"].float()[:, None] * x
+    gated = y.reshape(b, t, di) * torch.nn.functional.silu(z.float())
+    return gated.to(zxbcdt.dtype)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """``(..., L)`` -> ``(..., L, L)``: entry ``[i, j]`` the sum of ``a[j+1..i]``
+    for ``j <= i`` (0 on the diagonal), -inf above it; summed a row at a
+    time (no difference of two long sums)."""
+    n = a.shape[-1]
+    x = a[..., None].expand(*a.shape, n)  # x[..., i, j] = a[i]
+    ones = torch.ones((n, n), dtype=torch.bool, device=a.device)
+    x = x.masked_fill(~ones.tril(-1), 0.0).cumsum(dim=-2)
+    return x.masked_fill(~ones.tril(), float("-inf"))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, chunk: int, state: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's chunked scan (the state-space dual form), in f32.
+
+    ``x`` ``(B, T, heads, P)``, ``dt`` ``(B, T, heads)``, ``a`` ``(heads,)``
+    (negative), ``bm`` / ``cm`` ``(B, T, N)`` (one group), ``state``
+    ``(B, heads, P, N)`` the state before position 0, replaced by the state
+    after position T - 1 (in place). Returns ``y`` ``(B, T, heads, P)``
+    without the ``D x`` term: ``S_t = exp(dt_t a) S_{t-1} + dt_t x_t B_t^T``,
+    ``y_t = S_t C_t``. Within a chunk of ``chunk`` positions the quadratic
+    form; across chunks the states, passed on chunk by chunk. T is padded to
+    whole chunks with positions of ``dt = 0`` and zero inputs, which change
+    nothing."""
+    b, t, nh, p = x.shape
+    pad = (-t) % chunk
+    if pad:
+        x, dt = (torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad)) for v in (x, dt))
+        bm, cm = (torch.nn.functional.pad(v, (0, 0, 0, pad)) for v in (bm, cm))
+    c = (t + pad) // chunk
+    xs = (x * dt[..., None]).view(b, c, chunk, nh, p)
+    da = (dt * a).view(b, c, chunk, nh).permute(0, 3, 1, 2)  # (B, heads, c, l)
+    bc, cc = bm.view(b, c, chunk, -1), cm.view(b, c, chunk, -1)
+    cum = da.cumsum(dim=-1)
+    # within each chunk: y_l = sum_{s <= l} C_l . B_s exp(sum_{s < k <= l} da_k) dt_s x_s
+    decay = torch.exp(_segsum(da))  # (B, heads, c, l, s)
+    cb = torch.einsum("bcln,bcsn->bcls", cc, bc)
+    y = torch.einsum("bhcls,bcshp->bclhp", decay * cb[:, None], xs)
+    # each chunk's own contribution to the state at its end
+    to_end = torch.exp(cum[..., -1:] - cum)  # (B, heads, c, l)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", bc, to_end, xs)
+    # the states at each chunk's start, from the state before position 0
+    states = torch.cat([state[:, None].float(), states], dim=1)  # (B, c + 1, heads, P, N)
+    carry = torch.exp(_segsum(torch.nn.functional.pad(cum[..., -1], (1, 0))))  # (B, h, c+1, c+1)
+    states = torch.einsum("bhzc,bchpn->bzhpn", carry, states)
+    state.copy_(states[:, -1])
+    y = y + torch.einsum("bcln,bchpn,bhcl->bclhp", cc, states[:, :-1], torch.exp(cum))
+    return y.reshape(b, c * chunk, nh, p)[:, :t]
+
+
+# ---------------------------------------------------------------------------
+# Routed experts
+# ---------------------------------------------------------------------------
+
+
 def route_experts(h, router, bias, cfg: TransformerConfig):
-    """The sigmoid router, in f32: ``s = sigmoid(h @ router)``, the
-    ``experts_per_token`` largest of ``s + bias`` chosen, their ``s``
-    normalised to sum to one (+ 1e-6; LFM2's ``norm_topk_prob``, with
-    ``routed_scaling_factor`` 1). ``h`` ``(N, H)``; returns ``(idx (N, k) int64,
-    weight (N, k) f32)``."""
-    scores = torch.sigmoid(h.float() @ router.float())
+    """The router, in f32, on ``h`` ``(N, H)``: ``(idx (N, k) int64, weight
+    (N, k) f32)``, ``k = experts_per_token``.
+
+    ``sigmoid`` (LFM2): ``s = sigmoid(h @ router)``, the k largest of ``s +
+    bias`` chosen, their ``s`` normalised to sum to one (+ 1e-6; LFM2's
+    ``norm_topk_prob``, with ``routed_scaling_factor`` 1). ``softmax``
+    (granite): the k largest logits ``h @ router`` chosen, weighted by their
+    softmax; ``bias`` is not read."""
+    logits = h.float() @ router.float()
+    if cfg.router == "softmax":
+        top, idx = torch.topk(logits, cfg.experts_per_token, dim=-1)
+        return idx, torch.softmax(top, dim=-1)
+    scores = torch.sigmoid(logits)
     _, idx = torch.topk(scores + bias, cfg.experts_per_token, dim=-1)
     weight = scores.gather(1, idx)
     return idx, weight / (weight.sum(dim=-1, keepdim=True) + 1e-6)
 
 
 def _moe_block(params, cfg, x, delta, hits):
-    """The residual add, then the routed experts: ``(x, their delta)``. A
-    decode step (T == 1) runs the experts kernel, which reads only the
-    experts its rows chose; a prefill groups the tokens by expert after a
-    host read of the counts. ``hits`` ``(E,)`` int32, if given, becomes 1 for
-    each expert chosen, else 0 (on the device)."""
+    """The residual add, then the routed experts (plus the shared expert
+    where the config has one, on the same normed input): ``(x, their
+    delta)``. A decode step (T == 1) runs the experts kernel, which reads
+    only the experts its rows chose; a prefill groups the tokens by expert
+    after a host read of the counts. ``hits`` ``(E,)`` int32, if given,
+    becomes 1 for each expert chosen, else 0 (on the device)."""
     b, t, hd = x.shape
-    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps)
-    h = h.reshape(b * t, hd)
-    idx, weight = route_experts(h, params["router"], params["expert_bias"], cfg)
+    x, h = _add_norm(x, delta, params["mlp_norm"], cfg.rms_eps, cfg.residual_multiplier)
+    flat = h.reshape(b * t, hd)
+    idx, weight = route_experts(flat, params["router"], params.get("expert_bias"), cfg)
     run = moe_experts if t == 1 else grouped_experts
-    out = run(h, idx, weight, params["w_gate"], params["w_up"], params["w_down"], hits)
-    return x, out.view(b, t, hd).to(x.dtype)
+    out = run(flat, idx, weight, params["w_gate"], params["w_up"], params["w_down"], hits)
+    out = out.view(b, t, hd)
+    if cfg.shared_ffn:
+        with profiling.region("talker/shared_expert"):
+            act = _swiglu(qmm(h, params["shared_w_gate"]), qmm(h, params["shared_w_up"]))
+            out = out + qmm(act, params["shared_w_down"]).float()
+    return x, out.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -915,6 +1182,26 @@ def make_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, 
         torch.zeros(shape, dtype=dtype, device=device),
         torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def make_ssm_state(cfg: TransformerConfig, batch: int,
+                   device=None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The Mamba layers' state, zeroed (a new sequence), or None for a talker
+    without them: the convolution's ``(Lm, B, ssm_conv - 1, conv_dim)`` and
+    the scan's ``(Lm, B, heads, head_dim, ssm_state)``, both f32."""
+    if not cfg.mamba_layers:
+        return None
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros(ssm_conv_shape(cfg, batch), **f32),
+            torch.zeros(ssm_scan_shape(cfg, batch), **f32))
+
+
+def ssm_conv_shape(cfg: TransformerConfig, batch: int) -> Tuple[int, ...]:
+    return (cfg.mamba_layers, batch, cfg.ssm_conv - 1, cfg.ssm_conv_dim)
+
+
+def ssm_scan_shape(cfg: TransformerConfig, batch: int) -> Tuple[int, ...]:
+    return (cfg.mamba_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
 
 
 def make_conv_state(cfg: TransformerConfig, batch: int, device=None) -> Optional[torch.Tensor]:

@@ -8,10 +8,14 @@ after a residual add, so the port fuses the pair.
 
 Kernel: ``csrc/add_rms_norm.cu``. bf16 ``x (..., D)`` read through its
 strides (the QK-norm's heads are views of the QKV projection's output), an
-optional bf16 ``delta`` of x's shape, the f32 weight ``(D,)``: ``res = x +
-delta`` rounded to bf16 as PyTorch's add rounds it (the new residual
-stream), and the RMSNorm of ``res`` in :func:`reference_rms_norm`'s order
-of arithmetic, one rounding to bf16 at the end. The mean's sum runs in
+optional bf16 ``delta`` of x's shape, the f32 weight ``(D,)`` and a scale on
+``delta`` (a talker's residual multiplier; 1 by default): ``res = x + scale
+* delta`` in f32 (the product rounded, then the sum), rounded once to bf16,
+as PyTorch's add of two bf16 tensors rounds it where the scale is 1 (the
+new residual stream), and the RMSNorm of ``res`` in
+:func:`reference_rms_norm`'s order of arithmetic, one rounding to bf16 at
+the end. Rows of up to ``MAX_D`` values (the Mamba mixer's gated norm has
+8,192). The mean's sum runs in
 another order than PyTorch's reduction, so the normed output can differ
 from the plain chain by one bf16 unit in the last place where two f32 sums
 round apart; ``res`` is bit-equal.
@@ -39,7 +43,7 @@ from . import _build, check_no_autograd
 #: number of times the CUDA kernel was launched
 launches = 0
 
-MAX_D = 4096  # row length the kernel takes at most (a multiple of 8)
+MAX_D = 8192  # row length the kernel takes at most (a multiple of 8)
 
 
 def reference_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -52,11 +56,13 @@ def reference_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> tor
 
 
 def reference_add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
-                           weight: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: ``(res, rms_norm(res))`` with ``res = x + delta`` (x
-    itself where ``delta`` is None)."""
+                           weight: torch.Tensor, eps: float,
+                           scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: ``(res, rms_norm(res))`` with ``res = x + scale *
+    delta`` (x itself where ``delta`` is None): in f32, rounded once to x's
+    dtype (PyTorch's own add where the scale is 1)."""
     if delta is not None:
-        x = x + delta
+        x = x + delta if scale == 1.0 else (x.float() + delta.float() * scale).to(x.dtype)
     return x, reference_rms_norm(x, weight, eps)
 
 
@@ -70,7 +76,8 @@ def _kernel():
         fn = _build.load("add_rms_norm").rho_add_rms_norm
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
         _fn = fn
     return _fn
 
@@ -131,9 +138,9 @@ def _check(x, delta, weight):
 
 
 def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.Tensor,
-                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(res, rms_norm(res))`` with ``res = x + delta`` (x itself where
-    ``delta`` is None), both bf16 and contiguous on a card.
+                 eps: float, scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(res, rms_norm(res))`` with ``res = x + scale * delta`` (x itself
+    where ``delta`` is None), both bf16 and contiguous on a card.
 
     CPU tensors run :func:`reference_add_rms_norm`; CUDA tensors launch
     ``csrc/add_rms_norm.cu`` (or raise).
@@ -142,7 +149,7 @@ def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.T
     check_no_autograd("add_rms_norm", "reference_add_rms_norm",
                       *(t for t in (x, delta, weight) if t is not None))
     if x.device.type == "cpu":
-        return reference_add_rms_norm(x, delta, weight, eps)
+        return reference_add_rms_norm(x, delta, weight, eps, scale)
     with profiling.region("kernels/add_rms_norm"):
         key = (x.shape, x.stride(), x.dtype, x.device,
                None if delta is None else (delta.shape, delta.stride(), delta.dtype, delta.device),
@@ -158,7 +165,7 @@ def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor], weight: torch.T
         stream = torch._C._cuda_getCurrentRawStream(dev)
         rc = _kernel()(x.data_ptr(), None if delta is None else delta.data_ptr(),
                        weight.data_ptr(), None if delta is None else res.data_ptr(),
-                       out.data_ptr(), *args, float(eps), dev, stream)
+                       out.data_ptr(), *args, float(eps), float(scale), dev, stream)
         if rc != 0:
             _check(x, delta, weight)  # names a per-call fault (alignment) if any
             raise RuntimeError(f"add_rms_norm kernel launch failed: cudaError_t {rc}")

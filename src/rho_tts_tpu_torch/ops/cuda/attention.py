@@ -42,17 +42,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SUPPORTED_D = range(16, 129, 16)
 
 
-def reference_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optional[int] = None):
+def reference_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optional[int] = None,
+                            scale: Optional[float] = None):
     """Plain PyTorch version; same semantics as the JAX reference.
 
     q ``(B,T,Hq,D)``, k/v ``(B,S,Hkv,D)``, attn_mask ``(B,S)`` bool key
     validity. Causal at the global query position ``q_offset + row``.
-    Returns ``(B,T,Hq,D)`` in q's dtype.
+    ``scale`` multiplies the scores (None: ``1 / sqrt(D)``). Returns
+    ``(B,T,Hq,D)`` in q's dtype.
     """
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
 
     qg = q.reshape(b, t, hkv, group, d).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
@@ -81,8 +84,8 @@ def _kernel():
         fn = _build.load("attention").rho_prefill_attention
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         _fn = fn
     return _fn
@@ -134,8 +137,11 @@ def _plan(key, q, k, v, attn_mask):
     return plan
 
 
-def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optional[int] = None):
-    """Fused attention; returns ``(B,T,Hq,D)`` in q's dtype.
+def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """Fused attention; returns ``(B,T,Hq,D)`` in q's dtype. ``scale``
+    multiplies the scores (None: ``1 / sqrt(D)``, which the kernel computes
+    as it always has).
 
     CPU tensors run :func:`reference_gqa_attention`; CUDA tensors launch
     ``csrc/attention.cu`` (or raise).
@@ -143,7 +149,8 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
     global launches
     check_no_autograd("fused_gqa_attention", "reference_gqa_attention", q, k, v)
     if q.device.type == "cpu":
-        return reference_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=q_offset)
+        return reference_gqa_attention(q, k, v, attn_mask, causal=causal, q_offset=q_offset,
+                                       scale=scale)
     with profiling.region("kernels/attention"):
         key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
                v.shape, v.stride(), v.dtype, v.device, attn_mask.shape, attn_mask.stride(),
@@ -155,7 +162,8 @@ def fused_gqa_attention(q, k, v, attn_mask, causal: bool = True, q_offset: Optio
         out = torch.empty(out_shape, dtype=q.dtype, device=q.device)
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), attn_mask.data_ptr(), out.data_ptr(), *args,
-            0 if q_offset is None else int(q_offset), int(bool(causal)), dev_index,
+            0 if q_offset is None else int(q_offset), int(bool(causal)),
+            0.0 if scale is None else float(scale), dev_index,
             # torch.cuda.current_stream(device).cuda_stream, without building a Stream
             torch._C._cuda_getCurrentRawStream(dev_index),
         )

@@ -53,17 +53,19 @@ MAX_SLICE = 64  # keys per block: the kernel's shared-memory slice
 _MIN_SLICE = 16
 
 
-def reference_decode_attention(q, k, v, mask):
+def reference_decode_attention(q, k, v, mask, scale=None):
     """Plain PyTorch version; same semantics as the JAX reference.
 
     q ``(B,1,Hq,D)``, k/v ``(B,S,Hkv,D)`` in any float storage (converted to
-    f32), mask ``(B,S)`` bool, the complete key validity. Returns
-    ``(B,1,Hq,D)`` in q's dtype.
+    f32), mask ``(B,S)`` bool, the complete key validity; ``scale``
+    multiplies the scores (None: ``1 / sqrt(D)``). Returns ``(B,1,Hq,D)`` in
+    q's dtype.
     """
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     group = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, t, hkv, group, d).float()
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     scores = scores.masked_fill(~mask[:, None, None, None, :].bool(), -1e30)
@@ -102,7 +104,7 @@ def _kernel():
         fn = lib.rho_decode_attention
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         ws = lib.rho_decode_workspace
         ws.restype = None
@@ -194,8 +196,10 @@ def _plan(key, q, k, v, mask):
     return plan
 
 
-def decode_gqa_attention(q, k, v, mask):
-    """Decode attention; returns ``(B,1,Hq,D)`` in q's dtype.
+def decode_gqa_attention(q, k, v, mask, scale=None):
+    """Decode attention; returns ``(B,1,Hq,D)`` in q's dtype. ``scale``
+    multiplies the scores (None: ``1 / sqrt(D)``, which the kernel computes
+    as it always has).
 
     CPU tensors run :func:`reference_decode_attention`; CUDA tensors launch
     ``csrc/decode_attention.cu`` (or raise).
@@ -203,7 +207,7 @@ def decode_gqa_attention(q, k, v, mask):
     global launches
     check_no_autograd("decode_gqa_attention", "reference_decode_attention", q, k, v)
     if q.device.type == "cpu":
-        return reference_decode_attention(q, k, v, mask)
+        return reference_decode_attention(q, k, v, mask, scale)
     with profiling.region("kernels/decode_attention"):
         key = (q.shape, q.stride(), q.dtype, q.device, k.shape, k.stride(), k.dtype, k.device,
                v.shape, v.stride(), v.dtype, v.device, mask.shape, mask.stride(), mask.dtype,
@@ -220,7 +224,7 @@ def decode_gqa_attention(q, k, v, mask):
             work, tickets = _workspace(q.device, stream, floats, n_tickets)
         rc = _kernel()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), work,
-            tickets, *args, dev_index, stream,
+            tickets, *args, 0.0 if scale is None else float(scale), dev_index, stream,
         )
         if rc != 0:
             raise RuntimeError(f"decode attention kernel launch failed: cudaError_t {rc}")

@@ -29,7 +29,8 @@ by name and :func:`reset` clears them.
 
 Always-on spans: ``qwen/model_init``, ``qwen/synthesize`` and
 ``qwen/generate_codes`` (the calls, attrs ``rows`` and ``frames``),
-``qwen/prompt_build``, ``qwen/prefill``, ``qwen/decode_chunk`` (attrs
+``qwen/prompt_build``, ``qwen/prefill`` (a talker with Mamba layers adds
+``ssm_chunks``, the chunks of its prefill's scan), ``qwen/decode_chunk`` (attrs
 ``steps`` and ``graph``: ``"capture"``, ``"replay"`` or ``"eager"``; a
 talker with routed experts adds ``experts_touched``, a list a step of the
 distinct experts each expert layer ran, counted on the device and fetched
@@ -46,12 +47,13 @@ the granularity of its layers, so that a trace names the layer whose host
 code runs in each idle gap of the device: ``qwen/chunk_prologue``,
 ``qwen/step``, ``qwen/embed``, ``qwen/sample``, ``qwen/residuals``
 (``models/qwen/model.py``: ``_decode_chunk``); ``talker/attention``,
-``talker/mlp``, and a hybrid talker's ``talker/conv`` and ``talker/moe``
+``talker/mlp``, and a hybrid talker's ``talker/conv``, ``talker/mamba``,
+``talker/moe`` and, inside it, ``talker/shared_expert``
 (``models/transformer.py``: each cached block);
 ``quant/int8_matmul``, ``quant/w8a8_matmul`` (``models/quantization.py``);
 and ``kernels/attention``, ``kernels/decode_attention``,
-``kernels/int4_matmul``, ``kernels/w8a8_matmul``, ``kernels/moe_experts``
-around the launches of ``ops/cuda``.
+``kernels/int4_matmul``, ``kernels/w8a8_matmul``, ``kernels/moe_experts``,
+``kernels/ssm_step`` around the launches of ``ops/cuda``.
 
 **Traces**: :func:`start_trace` / :func:`stop_trace` (directory from the
 argument or the ``RHO_TTS_TPU_TRACE_DIR`` env var) run a ``torch.profiler``

@@ -179,4 +179,4 @@ def test_kernel_library_name_tracks_source(tmp_path):
     assert _build._library_path(src) != first
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
         "attention", "decode_attention", "w8a8_matmul", "int4_matmul", "moe_experts",
-        "int8_gemv", "add_rms_norm", "rope_qk", "silu_mul"}
+        "int8_gemv", "add_rms_norm", "rope_qk", "silu_mul", "ssm_step"}

@@ -242,6 +242,9 @@ def _replay_is_the_step(monkeypatch):
         self.graph, self.leaves = types.SimpleNamespace(replay=step), leaves
 
     stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    # the process's graph counters, restored after the test: later tests read them
+    monkeypatch.setattr(qmodel, "graph_captures", qmodel.graph_captures)
+    monkeypatch.setattr(qmodel, "graph_replays", qmodel.graph_replays)
     monkeypatch.setattr(QwenTTSModel, "_graphable", lambda self: True)
     monkeypatch.setattr(qmodel._StepGraph, "capture", capture)
     monkeypatch.setattr(qmodel, "_decode_stream", lambda device: stream)
@@ -283,7 +286,8 @@ def test_the_graph_buffers_hold_the_conv_state_and_give_the_eager_codes(monkeypa
 
 
 def _raises(fn):
-    with pytest.raises(NotImplementedError, match="short-convolution or expert layers"):
+    with pytest.raises(NotImplementedError,
+                       match="short-convolution, state-space or expert layers"):
         fn()
 
 

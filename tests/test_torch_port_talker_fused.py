@@ -156,9 +156,9 @@ def _stand_ins(monkeypatch):
     def layout(t):
         return None if t is None else _layout(t.shape, t.stride())
 
-    def norm(x, delta, weight, eps):
+    def norm(x, delta, weight, eps, scale=1.0):
         calls["add_rms_norm"].append((layout(x), layout(delta), tuple(weight.shape)))
-        return arn.reference_add_rms_norm(x, delta, weight, eps)
+        return arn.reference_add_rms_norm(x, delta, weight, eps, scale)
 
     def rope(q, k, cos, sin):
         calls["rope_qk"].append((layout(q), layout(k)))
@@ -333,8 +333,8 @@ NORM_REFUSALS = {
     "weight-bf16": (dict(weight=lambda: torch.ones(64, dtype=torch.bfloat16)), TypeError),
     "d-ragged": (dict(x=lambda: _bf16((4, 60), 21), delta=lambda: None,
                       weight=lambda: torch.ones(60)), ValueError),
-    "d-too-long": (dict(x=lambda: _bf16((1, 8192), 21), delta=lambda: None,
-                        weight=lambda: torch.ones(8192)), ValueError),
+    "d-too-long": (dict(x=lambda: _bf16((1, arn.MAX_D + 8), 21), delta=lambda: None,
+                        weight=lambda: torch.ones(arn.MAX_D + 8)), ValueError),
     "no-rows": (dict(x=lambda: _bf16((0, 64), 21), delta=lambda: None), ValueError),
     "weight-shape": (dict(weight=lambda: torch.ones(32)), ValueError),
     "delta-shape": (dict(delta=lambda: _bf16((2, 64), 22)), ValueError),
