@@ -5,12 +5,14 @@ Run from the repository root on one NVIDIA GPU:
     python3 chip_attention_variants.py
 
 Builds copies of ``csrc/decode_attention.cu`` and ``csrc/attention.cu``,
-each with one part removed (all of the kernel; the decode kernel's split
+each with one part removed (all of the kernel; the decode kernel's cluster
 merge or its score and P.V loops; the prefill kernel's lo products or all
-its products), into ``build/attention_variants/``, and times each at the
-1.7B main-path shape as ``chip_smoke.py`` phase 2 times the kernels. It
-also sweeps the decode kernel's slice length, times both kernels with the
-L2 warm (no flush), and times the pieces of one wrapper call on the host.
+its products), into ``build/attention_variants/``, and times each as
+``chip_smoke.py`` phase 2 times the kernels: the decode kernel at the Qwen
+cells' shape, the prefill kernel at the 1.7B main-path shape. It also
+sweeps the decode kernel's cluster size (flushed, and 28 distinct caches in
+a CUDA graph), times both kernels with the L2 warm (no flush), and times
+the pieces of one wrapper call on the host.
 The variants compute wrong results: they only measure. Prints one JSON
 line, then the card's name and power limit. Needs a CUDA device.
 """
@@ -33,13 +35,9 @@ OUT = os.path.join(HERE, "build", "attention_variants")
 # (text in the source, replacement): each variant must find its text.
 DECODE_VARIANTS = {
     "full": [],
-    "nothing": [("  constexpr int kCh = 16", "  if (a.s_len > 0) return;\n  constexpr int kCh = 16")],
-    "no merge": [("  if (a.splits == 1) return;\n", "  return;\n")],
-    "no scores, no P.V": [
-        ("for (int j0 = warp * kRpw; j0 < n;", "for (int j0 = warp * kRpw; j0 < 0;"),
-        ("      for (int j = 0; j < n; ++j) {\n        const float vv",
-         "      for (int j = 0; j < 0; ++j) {\n        const float vv"),
-    ],
+    "nothing": [("  constexpr int kGpw =", "  if (a.s_len > 0) return;\n  constexpr int kGpw =")],
+    "no merge": [("  // 4. The block's state", "  return;\n  // 4. The block's state")],
+    "no scores, no P.V": [("    if (!tile_any[t]) continue;", "    continue;")],
 }
 _LO = [("        mma_bf16(oacc[2 * dp], pl, vf[0], vf[1]);\n", ""),
        ("        mma_bf16(oacc[2 * dp + 1], pl, vf[2], vf[3]);\n", "")]
@@ -60,7 +58,7 @@ PREFILL_VARIANTS = {
 def build_variants(build, name, variants):
     """Compile every variant of ``csrc/<name>.cu`` in parallel; return the libraries."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")] + ["-I", str(build.CSRC)]
     procs = {}
     for tag, edits in variants.items():
         text = src
@@ -123,44 +121,52 @@ def main() -> int:
     dlibs = build_variants(_build, "decode_attention", DECODE_VARIANTS)
     plibs = build_variants(_build, "attention", PREFILL_VARIANTS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, s, t, hq, hkv, d = 5, 384, 128, 16, 8, 128
+    b, t, hq, hkv, d = 5, 128, 16, 8, 128
+    db, ds = 8, 448
     stream = torch.cuda.current_stream().cuda_stream
-    report = {"shape": f"decode q({b},1,{hq},{d}) cache({b},{s},{hkv},{d}); "
+    report = {"shape": f"decode q({db},1,{hq},{d}) cache({db},{ds},{hkv},{d}) at frame 95; "
                        f"prefill q({b},{t},{hq},{d}) k/v({b},{t},{hkv},{d}); bf16"}
 
-    # Decode: the ragged mask of chip_smoke.py phase 2's main case.
-    key_pos = torch.arange(s, device="cuda")[None, :]
-    mask = (key_pos < torch.tensor([384, 300, 129, 200, 5], device="cuda")[:, None]) & (
-        key_pos >= torch.tensor([0, 12, 0, 100, 0], device="cuda")[:, None])
-    q, k, v = chip_smoke._attn_inputs(gen, (b, 1, hq, d), (b, s, hkv, d), torch.bfloat16,
+    # Decode: the benchmark cells' mask of chip_smoke.py phase 2.
+    mask = chip_smoke.cell_mask(db, ds, 95)
+    q, k, v = chip_smoke._attn_inputs(gen, (db, 1, hq, d), (db, ds, hkv, d), torch.bfloat16,
                                       torch.bfloat16)
     dec._plans.clear()
     dec.decode_gqa_attention(q, k, v, mask)
-    (out_shape, dev, floats, tickets, args), = dec._plans.values()
-    work, tick = dec._workspace(q.device, stream, floats, tickets)
+    (out_shape, dev, _, args), = dec._plans.values()
     out = torch.empty(out_shape, dtype=q.dtype, device="cuda")
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(), work, tick)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
     report["decode_us"] = {}
     for tag, lib in dlibs.items():
         fn = lib.rho_decode_attention
-        fn.restype, fn.argtypes = ctypes.c_int, dec._kernel()[0].argtypes
+        fn.restype, fn.argtypes = ctypes.c_int, dec._kernel().argtypes
         if fn(*ptrs, *args, 0.0, dev, stream) != 0:
             raise RuntimeError(f"decode variant {tag!r} did not launch")
         report["decode_us"][tag] = chip_smoke.time_ms(
             lambda: fn(*ptrs, *args, 0.0, dev, stream)) * 1e3
 
-    # The decode kernel's slice length, through the wrapper.
-    plan = dec.plan_splits
-    report["decode_us_by_slice"] = {}
+    # The decode kernel's cluster size, through the wrapper: one flushed
+    # launch, and 28 distinct caches back to back in a graph.
+    chain = [(q, *chip_smoke._attn_inputs(gen, q.shape, k.shape, torch.bfloat16,
+                                          torch.bfloat16)[1:], mask)
+             for _ in range(chip_smoke.DECODE_CHAIN)]
+    plan = dec.plan_clusters
+    report["decode_us_by_clusters"] = {}
     try:
-        for slice_ in (8, 16, 24, 32, 40, 48, 56, 64):
-            dec.plan_splits = lambda s_, units, sms, n=slice_: (-(-s_ // n), n)
+        for clusters in (1, 2, 4, 8):
+            dec.plan_clusters = lambda *_, n=clusters: n
             dec._plans.clear()
-            report["decode_us_by_slice"][slice_] = chip_smoke.time_ms(
-                lambda: dec.decode_gqa_attention(q, k, v, mask)) * 1e3
+            report["decode_us_by_clusters"][clusters] = {
+                "flushed": chip_smoke.time_ms(
+                    lambda: dec.decode_gqa_attention(q, k, v, mask)) * 1e3,
+                "chain": chip_smoke.chain_ms(dec.decode_gqa_attention, chain) * 1e3,
+                "chain_kernel": chip_smoke.chain_kernel_ms(
+                    dec.decode_gqa_attention, chain, "split_decode_kernel") * 1e3,
+            }
     finally:
-        dec.plan_splits = plan
+        dec.plan_clusters = plan
         dec._plans.clear()
+    del chain
 
     # Prefill: the left pads of chip_smoke.py phase 2's main case.
     pmask = chip_smoke._pad_mask(t, [0, 17, 40, 127, 128])
@@ -186,7 +192,7 @@ def main() -> int:
     }
 
     # The pieces of one decode wrapper call on the host.
-    fn = dec._kernel()[0]
+    fn = dec._kernel()
     report["host_us"] = {
         "decode wrapper": host_us(lambda: dec.decode_gqa_attention(q, k, v, mask)),
         "prefill wrapper": host_us(lambda: attn.fused_gqa_attention(pq, pk, pv, pmask)),

@@ -356,19 +356,34 @@ def ring_mask(b: int, s: int, col: int) -> torch.Tensor:
     return mask[:b]
 
 
+DECODE_CHAIN = 28  # distinct caches a timed graph reads back to back: a Qwen step's layers
+
+
+def cell_mask(b: int, s: int, frame: int) -> torch.Tensor:
+    """The benchmark cells' decode masks: prompts left-padded in a 256-slot
+    bucket, then ``frame`` + 1 frames decoded; the keys past them masked."""
+    key_pos = torch.arange(s, device="cuda")[None, :]
+    pads = torch.tensor([36, 126, 80, 60, 100, 26, 50, 90], device="cuda")[:b, None]
+    return (key_pos >= pads) & (key_pos <= 256 + frame)
+
+
 def check_decode(dec, gen) -> dict:
     """Decode attention over the 1.7B main-path cache, and the cases where
-    the split-S design can go wrong: the main path's real positions (left
-    pads of a 128-slot prompt, keys past the slot masked, so whole slices are
-    skipped), a row with no valid key, only the newest slot valid, an f8
-    cache at another split count, the tiny preset's head shape, unaligned
-    rows, and serving's ring masks (:func:`ring_mask`) at the slot batch of
-    8 over the rings of phase 9 (S = 640) and of the provider's defaults
-    (S = 1,600), and at the ``draft-1.7B`` head shape (D = 64, 8 / 4 heads)
-    over the speculative ring (S = 237). Every case runs twice and must give
-    the same bits (the merge's fixed order)."""
+    the cluster design can go wrong: the main path's real positions (left
+    pads of a 128-slot prompt, keys past the slot masked, so whole tiles and
+    blocks are skipped), a row with no valid key, only the newest slot
+    valid, an f8 cache at another cluster size, the tiny preset's head shape,
+    unaligned rows, serving's ring masks (:func:`ring_mask`) at the slot
+    batch of 8 over the rings of phase 9 (S = 640), of the provider's
+    defaults (S = 1,600) and the longest (S = 2,112), the ``draft-1.7B``
+    head shape (D = 64, 8 / 4 heads) over the speculative ring (S = 237),
+    and the benchmark cells' shapes (:func:`cell_mask`): Qwen (G = 2, D =
+    128), LFM2 (G = 4, D = 64), granite (G = 4, D = 128, scale 1/128). Every
+    case runs twice and must give the same bits (the merge's fixed order).
+    At the Qwen cells' shape the kernel is timed flushed (``cell``) and as
+    ``chain_ms`` / ``chain_kernel_ms``: 28 distinct caches back to back in a
+    CUDA graph, as a step runs them."""
     b, s, hq, hkv, d = 5, 384, 16, 8, 128
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     key_pos = torch.arange(s, device="cuda")[None, :]
     ragged = (key_pos < torch.tensor([384, 300, 129, 200, 5], device="cuda")[:, None]) & (
         key_pos >= torch.tensor([0, 12, 0, 100, 0], device="cuda")[:, None])  # left padding too
@@ -403,6 +418,13 @@ def check_decode(dec, gen) -> dict:
         (bf, bf, 2e-2, ring_mask(8, 237, 100), (8, 237, 8, 4, 64), 0, "draft-1.7B ring S=237"),
         (f32, f32, 2e-5, ring_mask(8, 237, 236), (8, 237, 8, 4, 64), 0,
          "draft-1.7B ring f32"),
+        (bf, bf, 2e-2, ring_mask(8, 2112, 1500), (8, 2112, 16, 8, 128), 0, "ring S=2112"),
+        (bf, bf, 2e-2, cell_mask(8, 448, 95), (8, 448, 16, 8, 128), 0, "Qwen cells"),
+        (bf, f8, 2e-2, cell_mask(8, 448, 191), (8, 448, 16, 8, 128), 0, "Qwen cells f8"),
+        (f32, f32, 2e-5, cell_mask(8, 448, 0), (8, 448, 16, 8, 128), 0, "Qwen cells f32"),
+        (bf, bf, 2e-2, cell_mask(8, 448, 95), (8, 448, 32, 8, 64), 0, "LFM2 cell G=4 D=64"),
+        (bf, bf, 2e-2, cell_mask(8, 448, 95), (8, 448, 32, 8, 128), 0,
+         "granite cell G=4, scale 1/128"),
     ):
         cb, cs, chq, chkv, cd = shape or (b, s, hq, hkv, d)
         if mask is None:
@@ -410,12 +432,13 @@ def check_decode(dec, gen) -> dict:
             mask = (kp >= torch.tensor([0, 9], device="cuda")[:, None]) & (kp <= cs - 30)
         q, k, v = _attn_inputs(gen, (cb, 1, chq, cd), (cb, cs, chkv, cd), q_dtype, kv_dtype,
                                kv_pad)
-        run = lambda: dec.decode_gqa_attention(q, k, v, mask)
+        scale = 1 / 128 if what.startswith("granite") else None
+        run = lambda: dec.decode_gqa_attention(q, k, v, mask, scale)  # noqa: E731
         case = {"case": what, "q/kv": f"{str(q_dtype).split('.')[-1]}/"
-                f"{str(kv_dtype).split('.')[-1]}", "kv": list(k.shape),
-                "splits": dec.plan_splits(cs, cb * chkv, sms)}
+                f"{str(kv_dtype).split('.')[-1]}", "q": list(q.shape), "kv": list(k.shape),
+                "clusters": dec.planned_clusters(q, k, v, mask)}
         _held(cases, "decode attention", case, run(), run(),
-              dec.reference_decode_attention(q, k, v, mask), tol)
+              dec.reference_decode_attention(q, k, v, mask, scale), tol)
         tensors[what] = (q, k, v, mask)
     group = hq // hkv
 
@@ -440,17 +463,31 @@ def check_decode(dec, gen) -> dict:
     for slot in (128, 200, 383):
         k_ms, lib_ms, b_ms = timed(f"slot {slot}")
         at_slots[slot] = {"ms": k_ms, "library_ms": lib_ms, "bound_ms": b_ms}
+    cq, ck, cv, cmask = tensors["Qwen cells"]
+    cell_ms, cell_library_ms, cell_bound_ms = timed("Qwen cells")
+    chain = [(cq, *_attn_inputs(gen, cq.shape, ck.shape, bf, bf)[1:], cmask)
+             for _ in range(DECODE_CHAIN)]
+    cell = {"shape": f"q{tuple(cq.shape)} cache{tuple(ck.shape)} bf16, frame 95",
+            "clusters": dec.planned_clusters(cq, ck, cv, cmask),
+            "ms": cell_ms, "chain_ms": chain_ms(dec.decode_gqa_attention, chain),
+            "chain_kernel_ms": chain_kernel_ms(dec.decode_gqa_attention, chain,
+                                               "split_decode_kernel"),
+            "bound_ms": cell_bound_ms, "library_ms": cell_library_ms,
+            "plain_ms": time_ms(lambda: dec.reference_decode_attention(cq, ck, cv, cmask))}
+    cell["chain_bound_share"] = cell["bound_ms"] / cell["chain_ms"]
+    cell["kernel_bound_share"] = cell["bound_ms"] / cell["chain_kernel_ms"]
+    del chain
     return {
         "name": "decode_gqa_attention", "route": "cuda",
         "source": "src/rho_tts_tpu_torch/csrc/decode_attention.cu",
         "replaces": "src/rho_tts_tpu/ops/pallas/decode_attention.py:85",
         "shape": f"q({b},1,{hq},{d}) cache({b},{s},{hkv},{d}) bf16",
-        "splits": dec.plan_splits(s, b * hkv, sms),
+        "clusters": dec.planned_clusters(q, k, v, mask),
         "max_abs_err": cases[0]["max_abs_err"], "tol": cases[0]["tol"], "cases": cases,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": by, "full_cache_bound_ms": full_bms,
         "library_ms": library_ms, "f8_cache_ms": f8_ms, "f8_cache_bound_ms": f8_bound,
-        "host_us": kernel_host_us, "at_main_path_slots": at_slots,
+        "host_us": kernel_host_us, "at_main_path_slots": at_slots, "cell": cell,
     }
 
 
@@ -1089,7 +1126,7 @@ def check_chatterbox_shapes(attn, dec, qz, w8, i4, gen) -> dict:
         plain = lambda: dec.reference_decode_attention(q, k, v, mask)  # noqa: E731
         case = {"case": what, "q/kv": f"{str(q_dtype).split('.')[-1]}/"
                 f"{str(kv_dtype).split('.')[-1]}", "q": list(q.shape), "kv": list(k.shape),
-                "splits": dec.plan_splits(s, rows * CB_HEADS, sms)}
+                "clusters": dec.planned_clusters(q, k, v, mask)}
         _held(out["decode_gqa_attention"], "chatterbox decode attention", case, run(), run(),
               plain(), tol)
         qh, kh, vh = q.transpose(1, 2), k.to(q_dtype).transpose(1, 2), v.to(q_dtype).transpose(1, 2)
@@ -4794,9 +4831,10 @@ def main(argv=None) -> int:
         if "parent_ms" in k["cases"][0]:
             log(f"  parent's kernel at the main case: {k['cases'][0]['parent_ms']:.4f} ms")
         if k["name"] == "decode_gqa_attention":
-            log(f"  splits {k['splits']}, full-cache bound {k['full_cache_bound_ms']:.5f} ms, "
+            log(f"  clusters {k['clusters']}, full-cache bound {k['full_cache_bound_ms']:.5f} ms, "
                 f"f8 cache {k['f8_cache_ms']:.4f} ms, at the main path's slots "
-                f"{json.dumps(k['at_main_path_slots'])}")
+                f"{json.dumps(k['at_main_path_slots'])}, at the Qwen cells' shape "
+                f"{json.dumps(k['cell'])}")
         for case in k["chatterbox_cases"]:
             log(f"  chatterbox case {json.dumps(case)}")
     moe_kernel = check_moe_experts(moe, gen)

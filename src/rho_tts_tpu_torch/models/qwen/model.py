@@ -79,7 +79,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.cuda import decode_attention as decode_attention_kernel
 from ...parallel.collectives import all_gather, all_reduce_max, all_reduce_sum, vocab_embed
 from ...utils import prng, profiling
 from ...utils.tokenizer import load_tokenizer
@@ -467,8 +466,8 @@ class _StepGraph:
     ``state`` and the model's f32 ``lm_head`` before the replays. The graph
     is captured and replayed on its device's one decode stream
     (:func:`_decode_stream`, :meth:`_Decode.run`), so graphs never run at
-    the same time and share the decode attention kernel's merge workspace,
-    of which the graph holds the one it captured.
+    the same time and share the per-stream buffers of the kernels that keep
+    one (``ssm_step``'s tickets).
     """
 
     def __init__(self, arena: torch.Tensor, cfg_local, b: int, s: int, kv_dtype, nq: int,
@@ -494,17 +493,15 @@ class _StepGraph:
         self.lm_head = lm_head
         self.graph = None
         self.leaves: List[torch.Tensor] = []  # the weights the graph was captured on
-        self.workspace: tuple = ()  # the decode attention workspace the graph captured
 
     def capture(self, step, leaves, stream) -> None:
         """Run ``step`` once eagerly on ``stream``, so the kernels' per-stream
-        workspaces and cuBLAS's exist before the capture records their
+        buffers and cuBLAS's workspace exist before the capture records their
         addresses, then capture one step (which runs nothing)."""
         step()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             step()
-        self.workspace = decode_attention_kernel.workspace(self.cache_k.device, stream)
         self.graph, self.leaves = graph, leaves
 
 

@@ -1,9 +1,11 @@
 """The attention kernels' blocking, emulated in plain PyTorch, vs the JAX package.
 
-``csrc/decode_attention.cu`` splits the key axis (flash-decoding): each
-split keeps its own softmax state, a split whose keys are all masked in a
-row that has a valid key elsewhere is skipped, masked keys of such a row
-are zero-filled instead of read, and the states are merged in split order.
+``csrc/decode_attention.cu`` cuts the key axis of each (row, KV head)
+over the C blocks of one thread block cluster: each block walks its keys in
+tiles of 32 with an online softmax, reading only the valid keys (its
+mask read first), skips tiles with no valid key, and the blocks' states are
+merged in rank order; a row with no valid key at all averages V over every
+key once the cluster knows no block saw one.
 ``csrc/attention.cu`` (bf16) walks 64-key tiles with an online softmax,
 skips the tiles past the causal diagonal of a 64-query block when the
 batch row has a valid key at or before the block's first query, and feeds
@@ -13,7 +15,7 @@ The CUDA kernels cannot run on the CPU, so these tests emulate that
 blocking step by step (test code only: nothing in the port calls it) and
 hold it against the JAX Pallas kernels in interpret mode and the einsum
 references, on the same numpy inputs. They also check the decode
-wrapper's split planning.
+wrapper's cluster plan and the kernel's cut of the keys.
 """
 
 import math
@@ -38,15 +40,45 @@ def _t(a):
 
 
 # ---------------------------------------------------------------------------
-# Decode: split-S
+# Decode: a cluster of blocks a (row, KV head)
 # ---------------------------------------------------------------------------
 
+_TILE = 32  # keys a tile of the decode kernel
 
-def emulate_split_decode(q, k, v, mask, splits, slice_):
+
+def _block_state(qg, kf, vf, valid, lo, hi, scale):
+    """One block's walk over keys ``[lo, hi)``: tiles of 32 keys, a tile
+    with no valid key skipped, an online softmax (running max, sum and
+    acc). A tile holds only the valid keys (the others are zeros, their
+    scores selected away). Returns ``(m (G,), l (G,), acc (G, D), saw a
+    valid key)``."""
+    group, d = qg.shape
+    m = torch.full((group,), -math.inf)
+    l = torch.zeros(group)
+    acc = torch.zeros(group, d)
+    for t0 in range(lo, hi, _TILE):
+        keys = slice(t0, min(hi, t0 + _TILE))
+        ok = valid[keys]
+        if not bool(ok.any()):
+            continue  # not copied, not computed
+        kk = torch.where(ok[:, None], kf[keys], 0.0)
+        vv = torch.where(ok[:, None], vf[keys], 0.0)
+        sc = torch.where(ok, (qg @ kk.T) * scale, -math.inf)  # (G, n)
+        m_new = torch.maximum(m, sc.max(dim=-1).values)
+        p = torch.where(ok, torch.exp(sc - m_new[:, None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[:, None] + p @ vv
+        m = m_new
+    return m, l, acc, bool(valid[lo:hi].any())
+
+
+def emulate_cluster_decode(q, k, v, mask, clusters):
     """The decode kernel's arithmetic, block by block, in f32.
 
-    q ``(B,1,Hq,D)``, k/v ``(B,S,Hkv,D)``, mask ``(B,S)`` bool; split i owns
-    keys ``[i*slice, min(S, (i+1)*slice))``. Returns ``(B,1,Hq,D)`` f32.
+    q ``(B,1,Hq,D)``, k/v ``(B,S,Hkv,D)``, mask ``(B,S)`` bool; block r of
+    the cluster owns keys :func:`block_keys` ``(S, clusters, r)``. Returns
+    ``(B,1,Hq,D)`` f32.
     """
     b, _, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -56,34 +88,22 @@ def emulate_split_decode(q, k, v, mask, splits, slice_):
     kf, vf = k.float(), v.float()
     out = torch.empty((b, hkv, group, d))
     for bi in range(b):
-        row_any = bool(mask[bi].any())
         for h in range(hkv):
-            states = []
-            for sp in range(splits):
-                keys = slice(sp * slice_, min(s, (sp + 1) * slice_))
-                valid = mask[bi, keys]
-                if row_any and not bool(valid.any()):
-                    states.append(None)  # skipped: m = -inf, nothing read
-                    continue
-                read = valid[:, None] if row_any else torch.ones_like(valid)[:, None]
-                kk = torch.where(read, kf[bi, keys, h], 0.0)  # zero-filled, not read
-                vv = torch.where(read, vf[bi, keys, h], 0.0)
-                sc = torch.where(valid, (qg[bi, h] @ kk.T) * scale, _FILL)  # (G, n)
-                m = sc.max(dim=-1).values
-                p = torch.exp(sc - m[:, None])
-                states.append((m, p.sum(dim=-1), p @ vv))
-            mx = torch.full((group,), -math.inf)
+            ranges = [tdec.block_keys(s, clusters, r) for r in range(clusters)]
+            states = [_block_state(qg[bi, h], kf[bi, :, h], vf[bi, :, h], mask[bi], lo, hi, scale)
+                      for lo, hi in ranges]
+            if not any(st[3] for st in states):
+                # No block saw a valid key: the -1e30 fill weighs every key 1.
+                states = [(torch.full((group,), -1e30), torch.full((group,), float(hi - lo)),
+                           vf[bi, lo:hi, h].sum(dim=0).expand(group, d), False)
+                          for lo, hi in ranges]
+            mx = torch.stack([st[0] for st in states]).max(dim=0).values
             den = torch.zeros(group)
             num = torch.zeros(group, d)
-            for st in states:  # split order
-                if st is None:
-                    continue
-                m, l, acc = st
-                mn = torch.maximum(mx, m)
-                c_old, c_new = torch.exp(mx - mn), torch.exp(m - mn)
-                den = den * c_old + l * c_new
-                num = num * c_old[:, None] + acc * c_new[:, None]
-                mx = mn
+            for m, l, acc, _ in states:  # rank order
+                c = torch.where(m == -math.inf, 0.0, torch.exp(m - mx))
+                den = den + l * c
+                num = num + acc * c[:, None]
             out[bi, h] = num / torch.clamp(den, min=1e-30)[:, None]
     return out.reshape(b, 1, hq, d)
 
@@ -112,19 +132,16 @@ def _jax_decode(q, k, v, mask):
     return pallas, ref
 
 
-def _fixed_splits(s, splits):
-    slice_ = -(-s // splits)
-    return -(-s // slice_), slice_
-
-
-@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
 @pytest.mark.parametrize("kind", ["serving", "no_key", "newest"])
 @pytest.mark.parametrize("s", [100, 192])
-def test_split_decode_emulation_matches_jax_f32(splits, kind, s):
+def test_split_decode_emulation_matches_jax_f32(clusters, kind, s):
     """f32: 1e-5 (the same math, the sums in another order). S = 100 leaves
-    a ragged last split; the serving masks skip whole splits."""
+    blocks of 12-13 keys and a ragged last tile; S = 192 at C = 1 walks six
+    tiles; the serving masks skip whole tiles and blocks; "no_key" takes the
+    no-valid-key path."""
     q, k, v, mask = _decode_inputs(s, kind)
-    ours = emulate_split_decode(_t(q), _t(k), _t(v), _t(mask), *_fixed_splits(s, splits)).numpy()
+    ours = emulate_cluster_decode(_t(q), _t(k), _t(v), _t(mask), clusters).numpy()
     pallas, ref = _jax_decode(q, k, v, mask)
     np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=1e-5)
     # A row with no valid key averages V; the Pallas kernel averages over its
@@ -139,13 +156,13 @@ def test_split_decode_emulation_matches_jax_f32(splits, kind, s):
         np.testing.assert_allclose(ours[1, 0, 0], v[1, :, 0].mean(0), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("splits", [1, 3, 8])
-def test_split_decode_emulation_f8_storage(splits):
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
+def test_split_decode_emulation_f8_storage(clusters):
     """float8 e4m3 storage, converted to f32 as it is used: 1e-5 against the
     Pallas kernel on the same f8 cache and the reference on its f32 upcast."""
     q, k, v, mask = _decode_inputs(100, "serving")
     k8, v8 = _t(k).to(torch.float8_e4m3fn), _t(v).to(torch.float8_e4m3fn)
-    ours = emulate_split_decode(_t(q), k8, v8, _t(mask), *_fixed_splits(100, splits)).numpy()
+    ours = emulate_cluster_decode(_t(q), k8, v8, _t(mask), clusters).numpy()
     pallas = np.asarray(jdec.decode_gqa_attention(
         q, jnp.asarray(k, jnp.float8_e4m3fn), jnp.asarray(v, jnp.float8_e4m3fn),
         jnp.asarray(mask), interpret=True))
@@ -155,28 +172,67 @@ def test_split_decode_emulation_f8_storage(splits):
     np.testing.assert_allclose(ours, pallas, atol=1e-5, rtol=1e-5)
 
 
+def test_cluster_decode_masked_keys_never_reach_the_output():
+    """A masked key is never read: whatever it holds (here NaN and inf)
+    never reaches the output."""
+    q, k, v, mask = _decode_inputs(192, "serving")
+    k, v = k.copy(), v.copy()
+    k[~mask] = np.nan
+    v[~mask] = np.inf
+    ours = emulate_cluster_decode(_t(q), _t(k), _t(v), _t(mask), 4).numpy()
+    ref = tdec.reference_decode_attention(_t(q), _t(np.where(mask[..., None, None], k, 0)),
+                                          _t(np.where(mask[..., None, None], v, 0)), _t(mask))
+    np.testing.assert_allclose(ours, ref.numpy(), atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("sms", [1, 8, 132])
 @pytest.mark.parametrize("units", [1, 2, 5, 40, 300])
 def test_plan_splits_covers_every_key_once(sms, units):
-    """For S = 1..400: at least one split, slices of at most 64 keys, every
-    key in exactly one split, no empty split; the grid holds two blocks per
-    SM unless the slices are already the smallest, 16 keys."""
+    """For S = 1..400: C is 1, 2, 4 or 8; every key in exactly one block, no
+    empty block; the grid holds two blocks for every SM unless C is already
+    8 or the blocks would hold fewer than 16 keys."""
     for s in range(1, 401):
-        splits, slice_ = tdec.plan_splits(s, units, sms)
-        assert splits >= 1 and 16 <= slice_ <= tdec.MAX_SLICE
+        c = tdec.plan_clusters(s, units, sms)
+        assert c in (1, 2, 4, 8) and c <= s
         owner = np.zeros(s, np.int64)
-        for sp in range(splits):
-            lo, hi = sp * slice_, min(s, (sp + 1) * slice_)
-            assert hi > lo, (s, units, sms, splits, slice_)
+        for r in range(c):
+            lo, hi = tdec.block_keys(s, c, r)
+            assert hi > lo, (s, units, sms, c)
             owner[lo:hi] += 1
         assert (owner == 1).all(), (s, units, sms)
-        assert splits * units >= 2 * sms or slice_ == 16, (s, units, sms, splits)
+        assert c * units >= 2 * sms or c == 8 or 2 * c * tdec.MIN_KEYS > s, (s, units, sms, c)
+        assert c == 1 or (c // 2) * units < 2 * sms, (s, units, sms, c)  # no larger than needed
 
 
 def test_plan_splits_main_path():
-    """1.7B decode, B 5 x Hkv 8, a 384-slot cache, 132 SMs: 8 slices of 48
-    keys, 320 blocks."""
-    assert tdec.plan_splits(384, 40, 132) == (8, 48)
+    """The Qwen cells: B 8 x Hkv 8, a 448-slot cache (a 256-slot prompt
+    bucket and 192 frames), 132 SMs: clusters of 8 blocks of 56 keys, 512
+    blocks."""
+    assert tdec.plan_clusters(448, 64, 132) == 8
+    assert [tdec.block_keys(448, 8, r) for r in (0, 7)] == [(0, 56), (392, 448)]
+
+
+@pytest.mark.parametrize("s,fit8,fit4,want", [
+    (448, 64, 64, 8), (448, 63, 64, 4), (448, 60, 50, 2), (448, -1, -1, 2),
+    (2112, 45, 92, 8), (2112, -1, 92, 4), (1000, 45, 92, 4)])
+def test_plan_clusters_takes_no_more_blocks_than_fit_at_once(s, fit8, fit4, want):
+    """Where the card holds fewer clusters of a size at once than there are
+    (row, KV head) pairs, a launch runs in waves: short blocks (S = 448 at
+    C = 8: 56 keys) then wait on one another, so the plan takes the next
+    size down; blocks of at least ``LONG_BLOCK`` keys (S = 2,112 at C = 8:
+    264) still gain more from the size than the waves cost. A size that
+    cannot launch at all (-1) is never taken. Clusters of 2 here always
+    fit."""
+    fits = {2: 1000, 4: fit4, 8: fit8}.__getitem__
+    assert tdec.plan_clusters(s, 64, 132, fits) == want
+
+
+def test_plan_clusters_long_caches_stay_within_a_block():
+    """A cache past what one block's shared memory holds a mask of takes
+    more blocks, whatever fills the card; beyond eight the wrapper refuses."""
+    assert tdec.plan_clusters(tdec.MAX_BLOCK_KEYS, 10_000, 132) == 1
+    assert tdec.plan_clusters(tdec.MAX_BLOCK_KEYS + 1, 10_000, 132) == 2
+    assert tdec.plan_clusters(tdec.MAX_S, 10_000, 132) == 8
 
 
 # ---------------------------------------------------------------------------
